@@ -1,0 +1,4 @@
+from repro_torch.traces.batch import TraceBatch, pack, to_device
+from repro_torch.traces.synth import fb_like_trace, tiny_trace
+
+__all__ = ["fb_like_trace", "tiny_trace", "TraceBatch", "pack", "to_device"]

@@ -1,0 +1,163 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device (marker `gpu`) and skips
+without one; run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+This file imports no JAX (the card tests need only torch). It also
+holds `random_tick_inputs`, the seeded coordinator-tick inputs that
+`tests/test_torch_coordinator.py` feeds to both packages.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import coordinator as co
+from repro_torch.core.params import SchedulerParams
+from repro_torch.core.queues import queue_of
+from repro_torch.kernels import ops
+
+UNIT = SchedulerParams(port_bw=1.0, delta=1e-2, start_threshold=4.0,
+                       growth=4.0, num_queues=5)
+
+
+def random_tick_inputs(B, C, P, *, seed, params=UNIT, max_width=6,
+                       flow_multiple=64):
+    """Seeded numpy inputs of one coordinator tick for B lanes: live
+    flows stored contiguous per coflow (traces.batch's layout), the
+    (coflow, port) live counts they imply, Eq. 1 values spread across
+    the queue thresholds, a carried state with some expired deadlines,
+    and the optional §4.3 / ablation inputs."""
+    rng = np.random.default_rng(seed)
+    th0 = params.thresholds()[0]
+    widths = rng.integers(1, max_width + 1, (B, C))
+    F = -(-int(widths.sum(1).max()) // flow_multiple) * flow_multiple
+    d = {k: [] for k in ("cid", "src", "dst", "live", "flow_lo",
+                         "flow_hi", "cnt_s", "cnt_r")}
+    active = rng.uniform(size=(B, C)) < 0.8
+    for b in range(B):
+        w = widths[b]
+        hi = np.cumsum(w)
+        lo = hi - w
+        f = int(hi[-1])
+        cid = np.full(F, C - 1, np.int32)
+        cid[:f] = np.repeat(np.arange(C), w)
+        src = rng.integers(0, P, F).astype(np.int32)
+        dst = rng.integers(0, P, F).astype(np.int32)
+        live = np.zeros(F, bool)
+        live[:f] = active[b][cid[:f]] & (rng.uniform(size=f) < 0.7)
+        cnt_s = np.zeros((C, P), np.float32)
+        cnt_r = np.zeros((C, P), np.float32)
+        np.add.at(cnt_s, (cid[live], src[live]), 1.0)
+        np.add.at(cnt_r, (cid[live], dst[live]), 1.0)
+        for k, v in (("cid", cid), ("src", src), ("dst", dst),
+                     ("live", live), ("flow_lo", lo.astype(np.int32)),
+                     ("flow_hi", hi.astype(np.int32)), ("cnt_s", cnt_s),
+                     ("cnt_r", cnt_r)):
+            d[k].append(v)
+    out = {k: np.stack(v) for k, v in d.items()}
+    width = widths.astype(np.int32)
+    m = (th0 * 10.0 ** rng.uniform(-1.5, 3.0, (B, C)) / width)
+    q_true = queue_of(m * width, params)
+    queue = np.where(rng.uniform(size=(B, C)) < 0.6, q_true,
+                     rng.integers(-1, params.num_queues, (B, C)))
+    out.update(
+        active=active, width=width, m=m.astype(np.float32),
+        arrival=np.stack([rng.permutation(C) for _ in range(B)]
+                         ).astype(np.int32),
+        bw_s=np.full((B, P), params.port_bw, np.float32),
+        bw_r=np.full((B, P), params.port_bw, np.float32),
+        total=(m * width * rng.uniform(0.5, 2.0, (B, C))
+               ).astype(np.float32),
+        mixed=active & (rng.uniform(size=(B, C)) < 0.3),
+        m_dyn=(m * rng.uniform(0.0, 1.0, (B, C))).astype(np.float32),
+        queue=queue.astype(np.int32),
+        deadline=(1.0 + rng.uniform(-0.5, 0.5, (B, C))).astype(np.float32),
+        running=rng.uniform(size=(B, C)) < 0.3,
+        now=np.float32(1.0))
+    return out
+
+
+def torch_tick_args(d, device, *, flows=True):
+    """(state, batch, flows) tensors of the port from `random_tick_inputs`."""
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+    i64, f32, b8 = torch.int64, torch.float32, torch.bool
+    state = co.CoordState(t(d["queue"], i64), t(d["deadline"], f32),
+                          t(d["running"], b8))
+    batch = co.CoflowBatch(
+        active=t(d["active"], b8), arrival=t(d["arrival"], i64),
+        m=t(d["m"], f32), width=t(d["width"], i64),
+        cnt_s=t(d["cnt_s"], f32), cnt_r=t(d["cnt_r"], f32),
+        bw_s=t(d["bw_s"], f32), bw_r=t(d["bw_r"], f32),
+        total=t(d["total"], f32), mixed=t(d["mixed"], b8),
+        m_dyn=t(d["m_dyn"], f32))
+    fv = co.FlowView(t(d["cid"], i64), t(d["src"], i64), t(d["dst"], i64),
+                     t(d["live"], b8), t(d["flow_lo"], i64),
+                     t(d["flow_hi"], i64)) if flows else None
+    return state, batch, fv
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,P", [(1, 3, 5), (2, 64, 64), (3, 130, 150),
+                                   (16, 528, 150), (1, 4096, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contention_kernel_matches_plain(cuda, B, C, P, dtype):
+    g = torch.Generator(device="cpu").manual_seed(C * 7 + P)
+    a_s = (torch.rand(B, C, P, generator=g) < 0.05).to(dtype).to(cuda)
+    a_r = (torch.rand(B, C, P, generator=g) < 0.05).to(dtype).to(cuda)
+    act = (torch.rand(B, C, generator=g) < 0.7).to(cuda)
+    got = ops.contention(a_s, a_r, act)
+    want = ops.contention(a_s, a_r, act, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_contention_kernel_all_inactive(cuda):
+    a = torch.ones(2, 8, 8, device=cuda)
+    act = torch.zeros(2, 8, dtype=torch.bool, device=cuda)
+    assert (ops.contention(a, a, act) == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flows", [True, False])
+@pytest.mark.parametrize("B,C,P", [(4, 64, 6), (3, 512, 150)])
+def test_tick_kernels_match_plain(cuda, B, C, P, flows):
+    """A whole coordinator tick with both kernels equals the tick with
+    both plain versions, output by output, exactly (the walk kernel is
+    built without FMA contraction)."""
+    d = random_tick_inputs(B, C, P, seed=B + C, params=UNIT)
+    state, batch, fv = torch_tick_args(d, cuda, flows=flows)
+    cp = co.CoordParams.from_params(UNIT)
+    _, got = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                              flows=fv)
+    _, want = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                               flows=fv, force="ref")
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        if v is None:
+            assert got[k] is None, k
+        else:
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+def test_fleet_replay_on_card_matches_cpu(cuda):
+    from repro_torch.api import Scenario, run
+    from repro_torch.traces.synth import tiny_trace
+
+    fleet = tuple(tiny_trace(16, 12, seed=s) for s in range(3))
+    gpu = run(Scenario(traces=fleet))
+    cpu = run(Scenario(traces=fleet, device="cpu"))
+    assert gpu.events == cpu.events and gpu.ticks == cpu.ticks
+    np.testing.assert_array_equal(gpu.cct, cpu.cct)
