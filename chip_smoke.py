@@ -3,38 +3,54 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — `repro_torch.api.run` replaying a fleet
-of 16 FB-like traces (526 coflows, 150 ports each, the paper's
-full-width trace) through the Saath coordinator tick — on the card, and
-holds each hand-written CUDA kernel of that path against its plain
-PyTorch version on the same inputs:
+Drives the port's main paths through `repro_torch.api.run` on the card
+— a fleet of 16 FB-like traces (526 coflows, 150 ports each, the
+paper's full-width trace) through the Saath coordinator tick, first on
+the big switch, then on a 4:1 leaf-spine fabric with the max-min work-
+conservation fill — and holds each hand-written CUDA kernel of those
+paths against its plain PyTorch version on the same inputs:
 
-1. the card's name and power limit; build both kernels with nvcc
-   (`src/repro_torch/kernels/csrc/`, sm_90a) and print nvcc's register
-   and shared-memory report and the build time;
+1. the card's name and power limit; build the three kernels with nvcc
+   (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
+   started together) and print nvcc's register and shared-memory
+   report and the build time;
 2. K1 (LCoF contention) against its plain version, exact, at Table 2's
    shapes (B=1, C=2048 and 4096, P=512), f32 and bf16;
-3. one chunk of 128 event steps under `torch.cuda.set_sync_debug_mode(
-   "error")`: the tick loop makes no host synchronization;
-4. the main path: the 16-trace fleet through `run(Scenario(...))`, with
-   both kernels' launch counters set to 0 just before and read just
-   after (each must equal the event steps); per-lane avg CCT, events,
-   ticks, wall seconds and peak device memory; every real coflow
-   finished, every byte delivered. Tick inputs are captured on the way
-   (a spy on `tick_core` that clones its arguments);
+3. one chunk of 128 event steps of each path under
+   `torch.cuda.set_sync_debug_mode("error")`: the tick loop makes no
+   host synchronization;
+4. the big-switch main path: the 16-trace fleet through `run(Scenario(
+   ...))`, with the kernels' launch counters set to 0 just before and
+   read just after (K1 and K2 must equal the event steps); per-lane avg
+   CCT, events, ticks, wall seconds and peak device memory; every real
+   coflow finished, every byte delivered. Tick inputs are captured on
+   the way (a spy on `tick_core` that clones its arguments);
 5. whole-path parity: lanes 0 and 1 within 1% of the JAX package's avg
    CCT on the same traces (`tests/data/torch_port_fb_golden.json`);
-6. on the heaviest captured ticks, the whole tick with both kernels
-   against the tick with both plain versions (order, queue, contention,
-   expiry and admission exact; rates to rtol 1e-6), and each kernel's
-   time at the main path's shapes beside its plain version, the bound
-   and (K1) one PyTorch call computing the same function.
+6. on the heaviest captured ticks, the whole tick with the kernels
+   against the tick with the plain versions (order, queue, contention,
+   expiry and admission exact; rates to rtol 1e-6), and K1's and K2's
+   time at the main path's shapes beside the plain version, the bound
+   and (K1) one PyTorch call computing the same function;
+7. the leaf-spine main path: the same fleet under `LeafSpine(4, 4.0,
+   "maxmin")` (38 leaves, 188 rows a side), counters as in 4 (K1, K2 and
+   K3 must each equal the event steps), the same checks and prints;
+8. leaf-spine whole-path parity: lanes fb_like_trace(48, 150, seed=0/1)
+   under that topology with the JAX package's event count and within 1%
+   of its avg CCT (`tests/data/torch_port_leafspine_golden.json`);
+9. as 6 on the heaviest captured leaf-spine ticks (K1 + K2 + K3 against
+   the plain versions; the rates, `wc_flow` among them, must agree bit
+   for bit), and K2's (admission only) and K3's time at that path's
+   shapes beside the plain version and the bound; K3's latency floor
+   (rounds x barrier-separated steps) is printed beside it.
 
-Prints a `{"kernels": [...]}` line, the nvidia-smi line, and as the last
-line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
-before the result lines. Exits non-zero without a CUDA device.
+Prints a `{"kernels": [...]}` line (`launches` = launches over the two
+main-path runs, split by path in `launches_by_path`), the nvidia-smi
+line, and as the last line `{"ok": true, "device": {...}}`. Any failed
+phase exits non-zero before the result lines. Exits non-zero without a
+CUDA device.
 
-`python3 chip_smoke.py --profile` adds one profiled chunk of the main
+`python3 chip_smoke.py --profile` adds one profiled chunk of each main
 path (`profile_chunk`): wall time per event step, device busy share,
 kernel launches per step and the kernels with the most device time.
 """
@@ -46,12 +62,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_fb_golden.json"
+LEAF_GOLDEN = ROOT / "tests" / "data" / "torch_port_leafspine_golden.json"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; used for 32-bit word ops too
 FLEET = 16
 COFLOWS, PORTS = 526, 150
+PARITY_COFLOWS = 48
 CAPTURE_EVERY = 64
+# the barrier-separated steps of one max-min round in csrc/maxmin.cu
+# (zero, count, level + min, saturate, freeze, subtract)
+MAXMIN_STEPS_PER_ROUND = 6
 
 
 def fail(msg):
@@ -95,6 +116,13 @@ def host_ms(fn):
     return 1e3 * (time.perf_counter() - t0)
 
 
+def bound(nbytes, ops):
+    """The least time (ms) for `nbytes` moved and `ops` f32 operations,
+    and which of the two bounds it."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def contention_library(a_s, a_r, active):
     """One bf16 tensor-core product form of the contention count (the
     yardstick `library_ms`; the port never calls it)."""
@@ -111,32 +139,56 @@ def contention_bound_ms(B, C, P, elt):
     W2 = 2 * ((P + 31) // 32)
     nbytes = 2 * B * C * P * elt + B * C + 4 * B * C
     ops = 2 * B * C * C * W2          # an AND and an OR per word pair
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return bound(nbytes, ops)
 
 
 def walk_bound_ms(args, out):
     """Bytes and operations this tick's data needs: the n_live rows of
-    cnt, the missed coflows' flows, the outputs."""
+    cnt, the missed coflows' flows (per-flow fill), the outputs."""
     import torch
 
     order, n_live, cnt, avail0, _, _, flows = args
-    B, C, P2 = cnt.shape
-    rate, admitted, _, wc_flow = out
+    B, C, W = cnt.shape
+    rate, admitted, _, wc_flow, _ = out
     nl = int(n_live.sum())
-    lead = torch.arange(C, device=cnt.device)[None] < n_live[:, None]
-    missed = torch.zeros_like(admitted).scatter_(1, order, lead) & ~admitted
-    nf = int(((flows.flow_hi - flows.flow_lo) * missed).sum())
-    nbytes = (nl * (8 + 4 * P2) + B * (8 + 8 * P2 + 8)
-              + int(missed.sum()) * 16 + nf * 17
-              + B * C * 9 + wc_flow.numel() * 4)
-    ops = nl * P2 * 5 + nf * 4
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    nbytes = nl * (8 + 4 * W) + B * (8 + 8 * W + 8) + B * C * 9
+    ops = nl * W * 5
+    if wc_flow is not None:
+        lead = torch.arange(C, device=cnt.device)[None] < n_live[:, None]
+        missed = torch.zeros_like(admitted).scatter_(1, order, lead) \
+            & ~admitted
+        nf = int(((flows.flow_hi - flows.flow_lo) * missed).sum())
+        per_flow = 17 + (16 if flows.up is not None else 0)
+        nbytes += int(missed.sum()) * 16 + nf * per_flow \
+            + wc_flow.numel() * 4
+        ops += nf * 8
+    return bound(nbytes, ops)
 
 
-def profile_chunk(fleet, params, feats, warm_chunks=8):
-    """(`--profile` only) Where one chunk of the main path's time goes:
+def maxmin_work(args, rates):
+    """What this input needs of the max-min fill, read off its result:
+    candidates frozen in round k share the round's level, and the levels
+    rise round by round, so the distinct candidate rates of a lane are
+    its rounds and the flows still active in round k are those at or
+    above its level. Returns (bytes, ops, most rounds of any lane)."""
+    B, F = args["src"].shape
+    W = args["avail"].shape[1]
+    ops, rounds = 0, 0
+    for b in range(B):
+        v = rates[b][args["cand"][b]].sort().values
+        levels, counts = v.unique_consecutive(return_counts=True)
+        active = counts.flip(0).cumsum(0).flip(0)      # flows at >= level
+        rounds = max(rounds, levels.numel())
+        # per round: count + saturation test + freeze per active flow
+        # (four row ids each), level and update per row
+        ops += int(active.sum()) * 12 + levels.numel() * W * 6
+    links = 16 if args["num_links"] else 0
+    nbytes = B * F * (16 + links + 1 + 4) + B * W * 4
+    return nbytes, ops, rounds
+
+
+def profile_chunk(fleet, params, feats, topology, label, warm_chunks=8):
+    """(`--profile` only) Where one chunk of a main path's time goes:
     replay `warm_chunks` chunks unprofiled, then one chunk of 128 event
     steps under torch.profiler. Prints the wall time per event step, the
     device's busy share (summed kernel time over wall time; one stream,
@@ -149,7 +201,8 @@ def profile_chunk(fleet, params, feats, warm_chunks=8):
     from repro_torch.traces.batch import pack, to_device
 
     dev = torch.device("cuda")
-    tb = to_device(pack(fleet, port_bw=params.port_bw), dev)
+    tb = to_device(pack(fleet, port_bw=params.port_bw, topology=topology),
+                   dev)
     ep = eng.EngineParams.from_scheduler(params, device=dev).lanes(len(fleet))
     state = eng._init_state(tb)
     for _ in range(warm_chunks):
@@ -166,8 +219,8 @@ def profile_chunk(fleet, params, feats, warm_chunks=8):
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    print(f"[p] chunk of 128 event steps after {warm_chunks * 128}: wall "
-          f"{1e3 * wall / 128:.3f} ms per step (profiled)")
+    print(f"[p] {label}: chunk of 128 event steps after {warm_chunks * 128}"
+          f": wall {1e3 * wall / 128:.3f} ms per step (profiled)")
     if not rows:
         print("[p] device time: not measured (the profiler saw no CUDA "
               "kernels)")
@@ -175,9 +228,124 @@ def profile_chunk(fleet, params, feats, warm_chunks=8):
     print(f"[p] device busy {busy_us / 1e3 / 128:.3f} ms per step, share "
           f"{busy_us / 1e6 / wall:.3f}; {launches / 128:.1f} kernel "
           f"launches per step")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[p]   {e.self_device_time_total / 128:9.1f} us/step "
               f"{e.count / 128:6.1f} x  {e.key[:90]}")
+
+
+def drive(tag, sc, fleet):
+    """Run scenario `sc` with every launch counter set to 0 just before
+    and read just after, capturing every CAPTURE_EVERY-th tick's inputs;
+    check that every real coflow finished and every byte arrived.
+    Returns (result, launch counts, captured ticks)."""
+    import torch
+
+    from repro_torch.api import run
+    from repro_torch.core import coordinator as co
+    from repro_torch.kernels import ops
+
+    captured, calls = [], [0]
+    real_tick_core = co.tick_core
+
+    def spy(state, batch, now, dp, **kw):
+        if calls[0] % CAPTURE_EVERY == CAPTURE_EVERY // 2:
+            clone = (lambda t: None if t is None else
+                     type(t)(*(None if x is None else x.clone()
+                               for x in t)))
+            captured.append((clone(state), clone(batch), now.clone(),
+                             clone(dp), clone(kw.get("flows")),
+                             kw.get("wc_fill", "greedy")))
+        calls[0] += 1
+        return real_tick_core(state, batch, now, dp, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.tick_core = spy
+    ops.reset_launches()
+    try:
+        res = run(sc)
+    finally:
+        counts = ops.launch_counts()
+        co.tick_core = real_tick_core
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] fleet of {len(fleet)} x fb_like_trace({COFLOWS}, "
+          f"{PORTS}), topology {sc.topology}: events {res.events}, ticks "
+          f"{res.ticks}, wall {res.wall_seconds:.3f} s, peak device memory "
+          f"{peak / 2**20:.1f} MiB, launches {counts}")
+    print("    avg CCT per lane: " + " ".join(f"{x:.6f}"
+                                               for x in res.avg_cct))
+    for b, tr in enumerate(fleet):
+        cct = res.row_cct(b)
+        if cct.shape != (len(tr.coflows),) or not (cct > 0).all():
+            fail(f"[{tag}] lane {b}: unfinished or non-positive CCTs")
+        t = res.table(b)
+        if abs(t.sent.sum() - t.size.sum()) > 1e-5 * t.size.sum():
+            fail(f"[{tag}] lane {b}: bytes delivered differ from the "
+                 f"trace's")
+    return res, counts, captured
+
+
+def compare_ticks(tag, captured, exact_rates):
+    """The heaviest captured ticks with the kernels against the plain
+    versions. Returns ({kernel: (args, kwargs) of its last launch},
+    {kernel: max abs error})."""
+    import torch
+
+    from repro_torch.core import coordinator as co
+    from repro_torch.kernels import ops
+
+    def work(c):
+        return int(c[1].active.sum())
+
+    heavy = sorted(captured, key=work)[-3:]
+    grabbed = {}
+    names = ("contention", "tick_walk", "maxmin_rates")
+    real_ops = {n: getattr(ops, n) for n in names}
+
+    def grab(name, fn):
+        def f(*a, **k):
+            if k.get("force") is None:
+                grabbed[name] = (a, {x: v for x, v in k.items()
+                                     if x != "force"})
+            return fn(*a, **k)
+        return f
+
+    err = {n: 0.0 for n in names}
+    for i, (st, batch, now, dp, flows, fill) in enumerate(heavy):
+        for n in names:
+            setattr(ops, n, grab(n, real_ops[n]))
+        try:
+            _, got = co.tick_core(st, batch, now, dp, flows=flows,
+                                  wc_fill=fill)
+        finally:
+            for n in names:
+                setattr(ops, n, real_ops[n])
+        _, want = co.tick_core(st, batch, now, dp, flows=flows,
+                               wc_fill=fill, force="ref")
+        torch.cuda.synchronize()
+        for k in ("order", "queue", "contention", "expired", "admitted"):
+            if not torch.equal(got[k], want[k]):
+                fail(f"[{tag}] captured tick {i}: {k} differs between "
+                     f"kernels and plain versions")
+        for k in ("rate", "wc_rate", "wc_flow"):
+            a, b = got[k], want[k]
+            if exact_rates and not torch.equal(a, b):
+                fail(f"[{tag}] captured tick {i}: {k} differs from the "
+                     f"plain versions' (max abs "
+                     f"{float((a - b).abs().max()):.3g})")
+            if not torch.allclose(a, b, rtol=1e-6, atol=0):
+                fail(f"[{tag}] captured tick {i}: {k} differs beyond "
+                     f"rtol 1e-6")
+            who = "maxmin_rates" if fill == "maxmin" and k == "wc_flow" \
+                else "tick_walk"
+            err[who] = max(err[who], float((a - b).abs().max()))
+        err["contention"] = max(err["contention"], float(
+            (got["contention"] - want["contention"]).abs().max()))
+        print(f"[{tag}] captured tick {i} ({work((st, batch))} active "
+              f"coflows in {batch.active.shape[0]} lanes): kernels == "
+              f"plain versions (max abs rate diff "
+              f"{max(err['tick_walk'], err['maxmin_rates']):.3g})")
+    return grabbed, err
 
 
 def main():
@@ -187,8 +355,8 @@ def main():
         fail("no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.api import Scenario, run
-    from repro_torch.core import coordinator as co
     from repro_torch.fabric import engine as eng
+    from repro_torch.fabric.topology import LeafSpine
     from repro_torch.kernels import build, ops
     from repro_torch.traces.batch import pack, to_device
     from repro_torch.traces.synth import fb_like_trace
@@ -227,71 +395,43 @@ def main():
                                                    force="ref"), 5)
             lib = cuda_ms(lambda: contention_library(
                 a_s.bfloat16(), a_r.bfloat16(), act), 5)
-            bound, by = contention_bound_ms(1, C, 512, a_s.element_size())
+            bnd, by = contention_bound_ms(1, C, 512, a_s.element_size())
             print(f"[2] K1 (1, {C}, 512) {str(dtype)[6:]}: exact; kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bf16 matmul "
-                  f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+                  f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
-    # ---- 3. no host sync inside a chunk --------------------------------
+    # ---- 3. no host sync inside a chunk, on each path ------------------
     params = Scenario().params
     fleet = tuple(fb_like_trace(COFLOWS, PORTS, seed=s)
                   for s in range(FLEET))
-    tb = to_device(pack(fleet, port_bw=params.port_bw), dev)
-    feats = eng.features_for(params)
-    ep = eng.EngineParams.from_scheduler(params, device=dev).lanes(FLEET)
-    state = eng._init_state(tb)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state = eng._run_chunk(state, tb, ep, chunk=128, features=feats)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    print("[3] 128 event steps of the fleet ran under "
-          "set_sync_debug_mode('error'): no host sync in the tick loop")
-    del state, tb
+    leaf = LeafSpine(hosts_per_leaf=4, oversub=4.0, wc_fill="maxmin")
+    for topo in (None, leaf):
+        tb = to_device(pack(fleet, port_bw=params.port_bw, topology=topo),
+                       dev)
+        feats = eng.features_for(params, topology=topo)
+        ep = eng.EngineParams.from_scheduler(params, device=dev).lanes(FLEET)
+        state = eng._init_state(tb)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = eng._run_chunk(state, tb, ep, chunk=128, features=feats)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[3] 128 event steps of the fleet (topology {topo}) ran "
+              f"under set_sync_debug_mode('error'): no host sync in the "
+              f"tick loop")
+        del state, tb
 
-    # ---- 4. the main path ----------------------------------------------
-    captured, calls = [], [0]
-    real_tick_core = co.tick_core
-
-    def spy(state, batch, now, dp, **kw):
-        if calls[0] % CAPTURE_EVERY == CAPTURE_EVERY // 2:
-            clone = (lambda t: None if t is None else
-                     type(t)(*(None if x is None else x.clone()
-                               for x in t)))
-            captured.append((clone(state), clone(batch), now.clone(),
-                             clone(dp), clone(kw.get("flows"))))
-        calls[0] += 1
-        return real_tick_core(state, batch, now, dp, **kw)
-
-    sc = Scenario(engine="torch", traces=fleet)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    co.tick_core = spy
-    ops.reset_launches()
-    try:
-        res = run(sc)
-    finally:
-        counts = ops.launch_counts()
-        co.tick_core = real_tick_core
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[4] fleet of {FLEET} x fb_like_trace({COFLOWS}, {PORTS}): "
-          f"events {res.events}, ticks {res.ticks}, wall "
-          f"{res.wall_seconds:.3f} s, peak device memory "
-          f"{peak / 2**20:.1f} MiB, launches {counts}")
-    print("    avg CCT per lane: " + " ".join(f"{x:.6f}"
-                                               for x in res.avg_cct))
-    for name, n in counts.items():
-        if n != res.events:
-            fail(f"{name} launched {n} times for {res.events} event steps")
-    for b, tr in enumerate(fleet):
-        cct = res.row_cct(b)
-        if cct.shape != (len(tr.coflows),) or not (cct > 0).all():
-            fail(f"lane {b}: unfinished or non-positive CCTs")
-        t = res.table(b)
-        if abs(t.sent.sum() - t.size.sum()) > 1e-5 * t.size.sum():
-            fail(f"lane {b}: bytes delivered differ from the trace's")
+    # ---- 4. the big-switch main path -----------------------------------
+    res, counts, captured = drive("4", Scenario(engine="torch",
+                                                traces=fleet), fleet)
+    for name in ("contention", "tick_walk"):
+        if counts[name] != res.events:
+            fail(f"{name} launched {counts[name]} times for {res.events} "
+                 f"event steps")
+    if counts["maxmin"]:
+        fail("the max-min kernel ran on the big switch")
 
     # ---- 5. whole-path parity with the JAX package ---------------------
     gold = json.loads(GOLDEN.read_text())
@@ -304,82 +444,117 @@ def main():
                  f"package")
 
     # ---- 6. kernels vs plain versions on captured ticks ----------------
-    def work(c):
-        return int(c[1].active.sum())
-
-    heavy = sorted(captured, key=work)[-3:]
-    grabbed = {}
-    real_ops = ops.contention, ops.tick_walk
-
-    def grab(name, fn):
-        def f(*a, **k):
-            if k.get("force") is None:
-                grabbed[name] = (a, k)
-            return fn(*a, **k)
-        return f
-
-    err = {"contention": 0.0, "tick_walk": 0.0}
-    for i, (st, batch, now, dp, flows) in enumerate(heavy):
-        ops.contention = grab("contention", real_ops[0])
-        ops.tick_walk = grab("tick_walk", real_ops[1])
-        try:
-            ns_k, got = co.tick_core(st, batch, now, dp, flows=flows)
-        finally:
-            ops.contention, ops.tick_walk = real_ops
-        ns_p, want = co.tick_core(st, batch, now, dp, flows=flows,
-                                  force="ref")
-        torch.cuda.synchronize()
-        for k in ("order", "queue", "contention", "expired", "admitted"):
-            if not torch.equal(got[k], want[k]):
-                fail(f"captured tick {i}: {k} differs between kernels and "
-                     f"plain versions")
-        for k in ("rate", "wc_rate", "wc_flow"):
-            a, b = got[k], want[k]
-            if not torch.allclose(a, b, rtol=1e-6, atol=0):
-                fail(f"captured tick {i}: {k} differs beyond rtol 1e-6")
-            err["tick_walk"] = max(err["tick_walk"],
-                                   float((a - b).abs().max()))
-        err["contention"] = max(err["contention"], float(
-            (got["contention"] - want["contention"]).abs().max()))
-        print(f"[6] captured tick {i} ({work((st, batch))} active coflows "
-              f"in {FLEET} lanes): kernels == plain versions (max abs "
-              f"rate diff {err['tick_walk']:.3g})")
-
-    (ca, ck) = grabbed["contention"]
-    (wa, wk) = grabbed["tick_walk"]
+    grabbed, err = compare_ticks("6", captured, exact_rates=False)
+    ca, _ = grabbed["contention"]
+    wa, wk = grabbed["tick_walk"]
     B, C, P = ca[0].shape
     k1_ms = cuda_ms(lambda: ops.contention(*ca), 50)
     k1_plain = cuda_ms(lambda: ops.contention(*ca, force="ref"), 10)
     k1_lib = cuda_ms(lambda: contention_library(
         ca[0].bfloat16(), ca[1].bfloat16(), ca[2]), 10)
     k1_bound, k1_by = contention_bound_ms(B, C, P, ca[0].element_size())
-    walk_out = ops.tick_walk(*wa)
-    k2_ms = cuda_ms(lambda: ops.tick_walk(*wa), 20)
-    k2_plain = host_ms(lambda: ops.tick_walk(*wa, force="ref"))
+    walk_out = ops.tick_walk(*wa, **wk)
+    k2_ms = cuda_ms(lambda: ops.tick_walk(*wa, **wk), 20)
+    k2_plain = host_ms(lambda: ops.tick_walk(*wa, **wk, force="ref"))
     k2_bound, k2_by = walk_bound_ms(wa, walk_out)
     print(f"[6] K1 at ({B}, {C}, {P}): kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain:.4f} ms, bf16 matmul {k1_lib:.4f} ms, bound "
           f"{k1_bound:.5f} ms ({k1_by})")
-    print(f"[6] K2 at ({B}, {C}, {2 * P}), n_live "
+    print(f"[6] K2 at ({B}, {C}, {wa[2].shape[2]}), n_live "
           f"{int(wa[1].sum())}: kernel {k2_ms:.4f} ms, plain "
           f"{k2_plain:.1f} ms, bound {k2_bound:.5f} ms ({k2_by})")
 
+    # ---- 7. the leaf-spine max-min main path ---------------------------
+    lres, lcounts, lcaptured = drive(
+        "7", Scenario(engine="torch", traces=fleet, topology=leaf), fleet)
+    for name, n in lcounts.items():
+        if n != lres.events:
+            fail(f"{name} launched {n} times for {lres.events} leaf-spine "
+                 f"event steps")
+
+    # ---- 8. leaf-spine whole-path parity with the JAX package ----------
+    lgold = json.loads(LEAF_GOLDEN.read_text())
+    small = run(Scenario(engine="torch", topology=leaf, traces=tuple(
+        fb_like_trace(PARITY_COFLOWS, PORTS, seed=s)
+        for s in lgold["seeds"])))
+    print(f"[8] fb_like_trace({PARITY_COFLOWS}, {PORTS}) lanes "
+          f"{lgold['seeds']}: events {small.events} vs JAX "
+          f"{lgold['events']}")
+    if small.events != lgold["events"]:
+        fail("leaf-spine parity lanes took another event count than the "
+             "JAX package")
+    for b, want in enumerate(lgold["avg_cct"]):
+        dev_rel = abs(small.avg_cct[b] - want) / want
+        print(f"[8] lane {lgold['seeds'][b]}: avg CCT "
+              f"{small.avg_cct[b]:.6f} vs JAX {want:.6f} (relative "
+              f"deviation {dev_rel:.3e})")
+        if dev_rel > 1e-2:
+            fail(f"leaf-spine lane {b} avg CCT deviates {dev_rel:.3%} "
+                 f"from the JAX package")
+
+    # ---- 9. leaf-spine kernels vs plain versions on captured ticks -----
+    lgrabbed, lerr = compare_ticks("9", lcaptured, exact_rates=True)
+    err = {k: max(err[k], lerr[k]) for k in err}
+    la, lk = lgrabbed["tick_walk"]
+    lk2_ms = cuda_ms(lambda: ops.tick_walk(*la, **lk), 20)
+    lk2_plain = host_ms(lambda: ops.tick_walk(*la, **lk, force="ref"))
+    lk2_bound, lk2_by = walk_bound_ms(la, ops.tick_walk(*la, **lk))
+    print(f"[9] K2 (admission only) at ({la[2].shape[0]}, "
+          f"{la[2].shape[1]}, {la[2].shape[2]}), n_live "
+          f"{int(la[1].sum())}: kernel {lk2_ms:.4f} ms, plain "
+          f"{lk2_plain:.1f} ms, bound {lk2_bound:.5f} ms ({lk2_by})")
+    ma, mk = lgrabbed["maxmin_rates"]
+    margs = dict(src=ma[0], dst=ma[1], cand=ma[2], avail=ma[3], **mk)
+    rates = ops.maxmin_rates(*ma, **mk)
+    k3_ms = cuda_ms(lambda: ops.maxmin_rates(*ma, **mk), 20)
+    k3_plain = cuda_ms(lambda: ops.maxmin_rates(*ma, **mk, force="ref"), 3)
+    nbytes, mops, rounds = maxmin_work(margs, rates)
+    k3_bound, k3_by = bound(nbytes, mops)
+    steps = rounds * MAXMIN_STEPS_PER_ROUND
+    Bm, Fm = ma[0].shape
+    print(f"[9] K3 at ({Bm} lanes, {ma[3].shape[1] // 2} rows a side, "
+          f"{Fm} flows), {int(ma[2].sum())} candidates: kernel "
+          f"{k3_ms:.4f} ms, plain {k3_plain:.3f} ms, bound {k3_bound:.5f} "
+          f"ms ({k3_by}); latency floor: {rounds} rounds (distinct "
+          f"candidate levels of the busiest lane) x "
+          f"{MAXMIN_STEPS_PER_ROUND} barrier-separated steps = {steps} "
+          f"dependent steps, {1e3 * k3_ms / max(steps, 1):.3f} us per step "
+          f"as measured; library: null (no single PyTorch call computes "
+          f"max-min fair rates)")
+
+    both = {n: counts[n] + lcounts[n] for n in counts}
+    by_path = {n: {"bigswitch": counts[n], "leafspine": lcounts[n]}
+               for n in counts}
     kernels = [
         {"name": "contention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/contention.cu",
          "replaces": "src/repro/kernels/contention.py:51",
-         "launches": counts["contention"], "max_abs_err":
-         err["contention"], "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib},
+         "launches": both["contention"],
+         "launches_by_path": by_path["contention"],
+         "max_abs_err": err["contention"], "ms": k1_ms,
+         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": k1_lib},
         {"name": "tick_walk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/walk.cu",
          "replaces": "src/repro/core/jax_coordinator.py:311",
-         "launches": counts["tick_walk"], "max_abs_err": err["tick_walk"],
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "launches": both["tick_walk"],
+         "launches_by_path": by_path["tick_walk"],
+         "max_abs_err": err["tick_walk"], "ms": k2_ms,
+         "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None},
+        {"name": "maxmin", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/maxmin.cu",
+         "replaces": "src/repro/kernels/maxmin.py:60",
+         "launches": both["maxmin"], "launches_by_path": by_path["maxmin"],
+         "max_abs_err": err["maxmin_rates"], "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
     ]
     if "--profile" in sys.argv[1:]:
-        profile_chunk(fleet, params, feats)
+        for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):
+            profile_chunk(fleet, params,
+                          eng.features_for(params, topology=topo), topo,
+                          label)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,7 @@ class Scenario:
     # engine knobs
     fidelity: str = "flow"             # "flow" | "coflow"
     mechanisms: Optional[Mapping] = None
-    topology: Optional[object] = None  # only None (the big switch)
+    topology: Optional[object] = None  # None | BigSwitch() | LeafSpine()
     device: Optional[str] = None
     clairvoyance: Optional[bool] = None  # sugar for "clairvoyant"
     label: str = ""

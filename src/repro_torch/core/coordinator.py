@@ -7,17 +7,18 @@ JAX package `vmap`s a single-trace tick, every tensor here carries an
 explicit leading lane axis B, and every reduction the tick makes over a
 trace is a per-lane reduction over the last dimension.
 
-Two kernels of `kernels.ops` run inside: the LCoF contention count
-(CUDA kernel on the card; the Pallas kernel in the reference) and the
-admission + work-conservation walk (CUDA kernel on the card; XLA
-`while_loop`s in the reference). Everything else is plain PyTorch in
-f32, in the reference's operation order, so that a CPU run agrees with
-the JAX package to the last bit wherever the reference's arithmetic is
-order-independent.
+Three kernels of `kernels.ops` run inside: the LCoF contention count
+(CUDA kernel K1 on the card; the Pallas kernel in the reference), the
+admission + work-conservation walk (K2; XLA `while_loop`s in the
+reference) and, under a leaf-spine fabric with `wc_fill="maxmin"`, the
+max-min fair fill (K3; the Pallas kernel `maxmin_pallas` in the
+reference). Everything else is plain PyTorch in f32, in the reference's
+operation order, so that a CPU run agrees with the JAX package to the
+last bit wherever the reference's arithmetic is order-independent.
 
-Only the big-switch, clairvoyant path is ported: the leaf-spine link
-inputs (`cnt_x`/`bw_x`), the `wc_fill="maxmin"` fill and pilot sampling
-(`s_mixed`/`s_m`) are later slices (ROADMAP queue A items 5 and 6).
+The big switch and the leaf-spine fabric (`cnt_x`/`bw_x` link inputs,
+both work-conservation fills) are ported, clairvoyant only: pilot
+sampling (`s_mixed`/`s_m`) is a later slice (ROADMAP queue A item 6).
 """
 from __future__ import annotations
 
@@ -140,11 +141,16 @@ class CoflowBatch(NamedTuple):
     #                     live flows (§4.3 re-queue candidates)
     m_dyn: Optional[torch.Tensor] = None  # (B, C) f32 estimated remaining
     #                     length from the finished-flow median
+    # leaf-spine fabric (None = big switch): per-(coflow, link) live
+    # counts and link capacities, uplinks before downlinks (2Lf columns)
+    cnt_x: Optional[torch.Tensor] = None  # (B, C, 2Lf) f32
+    bw_x: Optional[torch.Tensor] = None   # (B, 2Lf) f32
 
 
 # Per-flow companion of CoflowBatch for flow-granular work conservation
-# (cid, src, dst, live, flow_lo, flow_hi): flows are stored contiguous
-# per coflow, so a flow's priority inside the missed list is (coflow
+# (cid, src, dst, live, flow_lo, flow_hi, and on a leaf-spine fabric the
+# up/dn leaf ids with the sentinel Lf): flows are stored contiguous per
+# coflow, so a flow's priority inside the missed list is (coflow
 # priority, flow index) — the kernel walks the [flow_lo, flow_hi)
 # segments in coflow priority order.
 FlowView = WalkFlows
@@ -171,7 +177,7 @@ def _lexsort(keys, C: int, B: int, device) -> torch.Tensor:
 
 def schedule_tick(state: CoordState, batch: CoflowBatch, now, *,
                   cp: CoordParams, flows: Optional[FlowView] = None,
-                  force: Optional[str] = None):
+                  wc_fill: str = "greedy", force: Optional[str] = None):
     """One Fig. 7 coordinator tick under static parameters (every lane
     the same setting). Returns (new_state, out)."""
     B = batch.active.shape[0]
@@ -179,16 +185,19 @@ def schedule_tick(state: CoordState, batch: CoflowBatch, now, *,
     now = torch.as_tensor(now, dtype=F32, device=dev).expand(B)
     return tick_core(state, batch, now,
                      DynCoordParams.from_cp(cp, dev).lanes(B),
-                     flows=flows, force=force)
+                     flows=flows, wc_fill=wc_fill, force=force)
 
 
 def tick_core(state: CoordState, batch: CoflowBatch, now: torch.Tensor,
               dp: DynCoordParams, *, flows: Optional[FlowView] = None,
-              force: Optional[str] = None):
+              wc_fill: str = "greedy", force: Optional[str] = None):
     """The Fig. 7 tick with tensor parameters: `now` (B,) f32, `dp` with
     a leading lane axis. Returns (new_state, out) with per-coflow MADD
     rates, admission mask, queue, contention, expiry, priority order and
-    the work-conservation rates (per flow when `flows` is given)."""
+    the work-conservation rates (per flow when `flows` is given: the
+    greedy walk, or with `wc_fill="maxmin"` the max-min fair fill)."""
+    if wc_fill not in ("greedy", "maxmin"):
+        raise ValueError(f"unknown wc_fill {wc_fill!r}")
     th = dp.thresholds
     B, C, P = batch.cnt_s.shape
     dev = batch.cnt_s.device
@@ -243,13 +252,37 @@ def tick_core(state: CoordState, batch: CoflowBatch, now: torch.Tensor,
                     C, B, dev)
 
     # D1/D2 all-or-none MADD admission and D4 work conservation, walked
-    # in `perm` order (CUDA kernel on the card)
+    # in `perm` order (CUDA kernel on the card). On a leaf-spine fabric
+    # the MADD min also runs over the coflow's uplink/downlink counts:
+    # the same arithmetic over W = 2P + 2Lf columns.
     min_rate = dp.min_rate_frac * dp.bw_ref
-    cnt = torch.cat([batch.cnt_s, batch.cnt_r], dim=-1)      # (B, C, 2P)
-    avail0 = torch.cat([batch.bw_s, batch.bw_r], dim=-1)     # (B, 2P)
+    cnt = [batch.cnt_s, batch.cnt_r]
+    avail0 = [batch.bw_s, batch.bw_r]
+    Lf = 0
+    if batch.cnt_x is not None:
+        cnt.append(batch.cnt_x)
+        avail0.append(batch.bw_x)
+        Lf = batch.cnt_x.shape[-1] // 2
+    cnt = torch.cat(cnt, dim=-1)                             # (B, C, W)
+    avail0 = torch.cat(avail0, dim=-1)                       # (B, W)
     n_live = hp.sum(-1)
-    rate, admitted, wc_rate, wc_flow = ops.tick_walk(
-        perm, n_live, cnt, avail0, min_rate, dp.wc, flows, force=force)
+    maxmin = flows is not None and wc_fill == "maxmin"
+    rate, admitted, wc_rate, wc_flow, avail = ops.tick_walk(
+        perm, n_live, cnt, avail0, min_rate, dp.wc,
+        None if maxmin else flows, num_links=Lf, admit_only=maxmin,
+        force=force)
+    if maxmin:
+        # max-min fair water-filling over the leftover flows (jax_
+        # coordinator.py:359-385; CUDA kernel on the card): the live
+        # flows of missed coflows, gated by dp.wc, on the capacity the
+        # admission left, ports and links alike
+        missed = hp & ~admitted
+        cand = flows.live & missed.gather(1, flows.cid) \
+            & (dp.wc > 0)[:, None]
+        wc_flow = ops.maxmin_rates(flows.src, flows.dst, cand, avail,
+                                   up=flows.up, dn=flows.dn, num_links=Lf,
+                                   force=force)
+        wc_flow = torch.where(cand, wc_flow, 0.0)
 
     new_state = CoordState(queue=torch.where(act, q, state.queue),
                            deadline=deadline, running=admitted)

@@ -1,1 +1,1 @@
-"""Flow table, metrics and the batched fleet replay engine."""
+"""Flow table, metrics, fabric models and the batched fleet replay engine."""

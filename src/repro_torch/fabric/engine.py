@@ -16,9 +16,10 @@ device (the tick's sequential loops run in the walk kernel). Entry
 points run on CUDA unless the caller passes ``device="cpu"``; without a
 card and without that, they raise.
 
-Only the big-switch, clairvoyant fabric is ported (ROADMAP queue A items
-5 and 6 hold leaf-spine and pilot sampling); the online-session branch
-of `_tick` is queue A item 4.
+The big switch and the leaf-spine fabric (`fabric.topology`, with the
+greedy or the max-min work-conservation fill) are ported, clairvoyant
+only: pilot sampling is ROADMAP queue A item 6, and the online-session
+branch of `_tick` is queue A item 4.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch.core import coordinator as co
 from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric.metrics import nan_row_mean
+from repro_torch.fabric.topology import wc_fill_of
 from repro_torch.traces.batch import TraceBatch, pack, to_device
 
 F32 = torch.float32
@@ -163,8 +165,9 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
            eps_t: torch.Tensor, *, per_flow_wc: bool, with_dynamics: bool,
            with_ablations: bool):
     """One tick's coordinator view of every lane: activation, per-(coflow,
-    port) live counts, Eq. 1 m_c, and (when built in) the §4.3
-    finished-flow-median inputs and the ablation's total bytes."""
+    port) live counts, Eq. 1 m_c, on a leaf-spine batch the per-(coflow,
+    link) live counts, and (when built in) the §4.3 finished-flow-median
+    inputs and the ablation's total bytes."""
     active = tb.coflow_valid & ~state.finished \
         & (tb.arrival <= (now + eps_t)[:, None])
     live = active.gather(1, tb.cid) & ~state.done & tb.flow_valid
@@ -175,6 +178,19 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
     cnt_r = _segment_sum(livef.gather(1, tb.perm_dst), tb.lo_dst, tb.hi_dst)
     total = _segment_sum(state.sent * tb.flow_valid, tb.flow_lo,
                          tb.flow_hi) if with_ablations else None
+
+    # leaf-spine: per-(coflow, link) live counts through the same sorted
+    # segment layout as the ports, uplinks before downlinks; left out
+    # (None) on a big-switch batch (Lf = 0)
+    cnt_x = bw_x = link_up = link_dn = None
+    if tb.bw_up.shape[-1]:
+        cnt_up = _segment_sum(livef.gather(1, tb.perm_up), tb.lo_up,
+                              tb.hi_up)
+        cnt_dn = _segment_sum(livef.gather(1, tb.perm_dn), tb.lo_dn,
+                              tb.hi_dn)
+        cnt_x = torch.cat([cnt_up, cnt_dn], dim=-1)      # (B, C, 2Lf)
+        bw_x = torch.cat([tb.bw_up, tb.bw_dn], dim=-1)   # (B, 2Lf)
+        link_up, link_dn = tb.link_up, tb.link_dn
 
     mixed = m_dyn = None
     if with_dynamics:
@@ -209,16 +225,19 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
     batch = co.CoflowBatch(active=active, arrival=tb.arrival_rank, m=m,
                            width=tb.width, cnt_s=cnt_s, cnt_r=cnt_r,
                            bw_s=tb.bw_send, bw_r=tb.bw_recv,
-                           total=total, mixed=mixed, m_dyn=m_dyn)
+                           total=total, mixed=mixed, m_dyn=m_dyn,
+                           cnt_x=cnt_x, bw_x=bw_x)
     flows = co.FlowView(cid=tb.cid, src=tb.src, dst=tb.dst, live=live,
-                        flow_lo=tb.flow_lo, flow_hi=tb.flow_hi) \
+                        flow_lo=tb.flow_lo, flow_hi=tb.flow_hi,
+                        up=link_up, dn=link_dn) \
         if per_flow_wc else None
     return batch, flows, active, live, livef
 
 
 def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
           per_flow_wc: bool = True, with_dynamics: bool = True,
-          with_ablations: bool = False) -> EngineState:
+          with_ablations: bool = False,
+          wc_maxmin: bool = False) -> EngineState:
     """Advance every lane one event step: schedule at the current δ
     tick, find the next instant the schedule could change, quantize it
     up to the δ grid, and integrate the constant rates across the jump.
@@ -231,7 +250,8 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
         state, tb, now, eps_t, per_flow_wc=per_flow_wc,
         with_dynamics=with_dynamics, with_ablations=with_ablations)
     total = batch.total
-    coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows)
+    coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows,
+                              wc_fill="maxmin" if wc_maxmin else "greedy")
     # per-flow rates: MADD equal rate for admitted coflows + the work-
     # conservation fill
     r_f = out["rate"].gather(1, tb.cid) * livef
@@ -300,11 +320,11 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
 def _run_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
                chunk: int, features: tuple) -> EngineState:
     """`chunk` event steps for every lane, with no host read."""
-    per_flow_wc, with_dynamics, with_ablations = features
+    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
     for _ in range(chunk):
         state = _tick(state, tb, ep, per_flow_wc=per_flow_wc,
                       with_dynamics=with_dynamics,
-                      with_ablations=with_ablations)
+                      with_ablations=with_ablations, wc_maxmin=wc_maxmin)
     return state
 
 
@@ -321,6 +341,18 @@ def default_max_ticks(tb: TraceBatch, delta: float, slack: float = 4.0,
     np.add.at(per_port, (np.arange(tb.num_traces)[:, None], 1, tb.dst),
               tb.size * tb.flow_valid)
     serial = per_port.max(axis=(1, 2)) / bw
+    Lf = tb.bw_up.shape[-1]
+    if Lf:
+        # oversubscribed uplinks/downlinks can be the bottleneck: each
+        # link's bytes over its capacity (sentinel Lf = no link)
+        per_link = np.zeros((tb.num_traces, 2, Lf + 1))
+        rows = np.arange(tb.num_traces)[:, None]
+        np.add.at(per_link, (rows, 0, tb.link_up), tb.size * tb.flow_valid)
+        np.add.at(per_link, (rows, 1, tb.link_dn), tb.size * tb.flow_valid)
+        cap = np.stack([tb.bw_up, tb.bw_dn], axis=1)  # (B, 2, Lf)
+        t_link = np.where(cap > 0, per_link[:, :, :Lf] / np.maximum(
+            cap, 1e-30), 0.0).max(axis=(1, 2))
+        serial = np.maximum(serial, t_link)
     last = np.where(tb.coflow_valid, tb.arrival, 0.0).max(axis=1)
     tot = np.einsum("bf->b", tb.size * tb.flow_valid) / bw
     horizon = float((last + slack * np.maximum(serial, tot)).max())
@@ -334,15 +366,12 @@ def features_for(params: SchedulerParams, *, fidelity: str = "flow",
                  topology=None,
                  clairvoyant: "bool | None" = None) -> tuple:
     """The structure switches `(per_flow_wc, with_dynamics,
-    with_ablations)` `_tick` runs with, derived as the reference's
-    `features_for` derives its first three; raises for the parts of the
-    reference that are not ported yet."""
+    with_ablations, wc_maxmin)` `_tick` runs with, derived as the
+    reference's `features_for` derives its first four (`wc_maxmin` from
+    a `LeafSpine`'s `wc_fill`); raises for the parts of the reference
+    that are not ported yet."""
     if fidelity not in ("flow", "coflow"):
         raise ValueError(f"unknown fidelity {fidelity!r}")
-    if topology is not None:
-        raise NotImplementedError(
-            "only the big-switch fabric is ported; leaf-spine is ROADMAP "
-            "queue A item 5")
     dyn = (params.dynamics_requeue if dynamics_requeue is None
            else dynamics_requeue)
     cl = params.clairvoyant if clairvoyant is None else clairvoyant
@@ -350,7 +379,8 @@ def features_for(params: SchedulerParams, *, fidelity: str = "flow",
         raise NotImplementedError(
             "non-clairvoyant (pilot-sampling) re-queue is not ported yet: "
             "ROADMAP queue A item 6")
-    return (fidelity == "flow", bool(dyn), not (lcof and per_flow_threshold))
+    return (fidelity == "flow", bool(dyn), not (lcof and per_flow_threshold),
+            wc_fill_of(topology) == "maxmin")
 
 
 def simulate_batch(traces: "Sequence | TraceBatch",
@@ -368,7 +398,8 @@ def simulate_batch(traces: "Sequence | TraceBatch",
     door is `repro_torch.api.run`). Mechanism switches default to the
     SchedulerParams fields (work_conservation / dynamics_requeue) or
     full SAATH (lcof / per_flow_threshold). `fidelity` picks per-flow
-    ("flow") or coflow-granular ("coflow") work conservation."""
+    ("flow") or coflow-granular ("coflow") work conservation;
+    `topology` (None, `BigSwitch()` or `LeafSpine(...)`) the fabric."""
     params = params or SchedulerParams()
     dev = resolve_device(device)
     features = features_for(
@@ -376,7 +407,7 @@ def simulate_batch(traces: "Sequence | TraceBatch",
         lcof=lcof, per_flow_threshold=per_flow_threshold,
         topology=topology, clairvoyant=clairvoyant)
     tb = traces if isinstance(traces, TraceBatch) else \
-        pack(traces, port_bw=params.port_bw)
+        pack(traces, port_bw=params.port_bw, topology=topology)
     if max_ticks is None:
         max_ticks = default_max_ticks(tb, params.delta)
     ep = EngineParams.from_scheduler(
@@ -404,8 +435,9 @@ def simulate_sweep(trace, params_list: Sequence[SchedulerParams], *,
     dev = resolve_device(device)
     feats = [features_for(p, fidelity=fidelity, topology=topology)
              for p in params_list]
-    features = (fidelity == "flow", any(f[1] for f in feats), False)
-    tb1 = pack([trace], port_bw=params_list[0].port_bw)
+    features = (fidelity == "flow", any(f[1] for f in feats), False,
+                feats[0][3])
+    tb1 = pack([trace], port_bw=params_list[0].port_bw, topology=topology)
     B = len(params_list)
     tb = TraceBatch(*(None if a is None else np.repeat(a, B, axis=0)
                       for a in tb1))
@@ -467,13 +499,14 @@ def from_reference(tb, params, state=None, *, device=None):
     finished, cct, t0, tick). Leaves may be numpy or anything
     `np.asarray` reads. Returns (tb, params, state) on `device`, with
     `params` broadcast to the batch's lanes and `state` None when none
-    was given. Raises for the parts of the reference not ported yet."""
+    was given. Big-switch and leaf-spine batches are carried; raises for
+    the parts of the reference not ported yet (pilot sampling, session
+    states)."""
     dev = resolve_device(device)
-    if getattr(tb, "pilot", None) is not None or \
-            np.asarray(tb.bw_up).shape[-1]:
+    if getattr(tb, "pilot", None) is not None:
         raise NotImplementedError(
-            "only big-switch, clairvoyant batches are ported (ROADMAP "
-            "queue A items 5 and 6)")
+            "pilot-sampling batches are not ported yet: ROADMAP queue A "
+            "item 6")
     t_tb = to_device(tb, dev)
     B = t_tb.cid.shape[0]
     dp = params.dp

@@ -33,9 +33,23 @@ SOURCES = {
     # the walk's float updates must round like the plain version: no
     # fused multiply-add contraction
     "walk": ("walk.cu", ["-fmad=false"]),
+    # the max-min levels and residuals must round like the plain version
+    "maxmin": ("maxmin.cu", ["-fmad=false"]),
 }
 
 _loaded: dict = {}
+
+
+def checked(t, name: str, shape, dtype, device):
+    """`t` made contiguous, after checking that it has the shape, dtype
+    and device a kernel's C interface expects (a raw pointer carries
+    none of them); raises ValueError otherwise."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
+            or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
 
 
 def nvcc_path() -> str:
@@ -104,5 +118,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path",
-           "nvcc_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "checked", "load",
+           "library_path", "nvcc_path"]

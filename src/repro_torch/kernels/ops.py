@@ -14,8 +14,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import contention as _contention
+from repro_torch.kernels import maxmin as _maxmin
 from repro_torch.kernels import walk as _walk
-from repro_torch.kernels.ref import (WalkFlows, contention_ref,
+from repro_torch.kernels.ref import (WalkFlows, contention_ref, maxmin_ref,
                                      tick_walk_ref)
 
 
@@ -35,26 +36,41 @@ def contention(a_send, a_recv, active, *, force: Optional[str] = None):
 
 
 def tick_walk(order, n_live, cnt, avail0, min_rate, wc,
-              flows: Optional[WalkFlows] = None, *,
-              force: Optional[str] = None):
+              flows: Optional[WalkFlows] = None, *, num_links: int = 0,
+              admit_only: bool = False, force: Optional[str] = None):
     """Admission + work-conservation walk -> (rate, admitted, wc_rate,
-    wc_flow); see `ref.tick_walk_ref` for the contract."""
+    wc_flow, avail); see `ref.tick_walk_ref` for the contract."""
     if _use_kernel(cnt, force):
         return _walk.tick_walk_cuda(order, n_live, cnt, avail0, min_rate,
-                                    wc, flows)
-    return tick_walk_ref(order, n_live, cnt, avail0, min_rate, wc, flows)
+                                    wc, flows, num_links=num_links,
+                                    admit_only=admit_only)
+    return tick_walk_ref(order, n_live, cnt, avail0, min_rate, wc, flows,
+                         num_links=num_links, admit_only=admit_only)
+
+
+def maxmin_rates(src, dst, cand, avail, *, up=None, dn=None,
+                 num_links: int = 0, force: Optional[str] = None):
+    """Max-min fair rates of the candidate flows (B, F) over the W row
+    capacities `avail` (B, W); see `ref.maxmin_ref` for the contract."""
+    if _use_kernel(avail, force):
+        return _maxmin.maxmin_cuda(src, dst, cand, avail, up=up, dn=dn,
+                                   num_links=num_links)
+    return maxmin_ref(src, dst, cand, avail, up=up, dn=dn,
+                      num_links=num_links)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last `reset_launches`, by kernel."""
     return {"contention": _contention.launches,
-            "tick_walk": _walk.launches}
+            "tick_walk": _walk.launches,
+            "maxmin": _maxmin.launches}
 
 
 def reset_launches() -> None:
     _contention.launches = 0
     _walk.launches = 0
+    _maxmin.launches = 0
 
 
-__all__ = ["contention", "tick_walk", "WalkFlows", "launch_counts",
-           "reset_launches"]
+__all__ = ["contention", "tick_walk", "maxmin_rates", "WalkFlows",
+           "launch_counts", "reset_launches"]

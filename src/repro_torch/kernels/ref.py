@@ -9,9 +9,14 @@ equal bit for bit; they are no yardstick of speed.
   with a leading batch axis.
 * `tick_walk_ref` is the sequential part of the coordinator tick that
   XLA ran as `while_loop`s in `repro.core.jax_coordinator.tick_core`:
-  the all-or-none MADD admission and the work-conservation fill. It is
-  a Python loop over the compacted priority list (vectorized across the
-  batch lanes), reading the loop bounds on the host.
+  the all-or-none MADD admission and the work-conservation fill, over
+  W = 2P + 2Lf capacity columns (ports, then the leaf-spine uplinks and
+  downlinks). It is a Python loop over the compacted priority list
+  (vectorized across the batch lanes), reading the loop bounds on the
+  host.
+* `maxmin_ref` is `repro.kernels.ref.maxmin_ref` (max-min fair rates by
+  progressive filling) in index form with a leading batch axis: each
+  flow names its rows instead of owning a one-hot column.
 """
 from __future__ import annotations
 
@@ -46,10 +51,14 @@ class WalkFlows(NamedTuple):
     live: torch.Tensor     # (B, F) bool
     flow_lo: torch.Tensor  # (B, C) int64 segment start
     flow_hi: torch.Tensor  # (B, C) int64 segment end
+    # leaf-spine link ids (None = big switch): the leaf in [0, Lf], with
+    # Lf the "touches no shared link" sentinel (TraceBatch.link_up/_dn)
+    up: Optional[torch.Tensor] = None   # (B, F) int64
+    dn: Optional[torch.Tensor] = None   # (B, F) int64
 
 
 def _madd(avail, inv, bigm, rows, c):
-    """Each lane's MADD equal rate for coflow c: min over the 2P
+    """Each lane's MADD equal rate for coflow c: min over the W
     columns of avail * (1 / cnt) (+ BIG where the coflow has no flow)."""
     return (avail * inv[rows, c] + bigm[rows, c]).amin(-1)
 
@@ -57,18 +66,23 @@ def _madd(avail, inv, bigm, rows, c):
 def tick_walk_ref(order: torch.Tensor, n_live: torch.Tensor,
                   cnt: torch.Tensor, avail0: torch.Tensor,
                   min_rate: torch.Tensor, wc: torch.Tensor,
-                  flows: Optional[WalkFlows] = None):
+                  flows: Optional[WalkFlows] = None, *,
+                  num_links: int = 0, admit_only: bool = False):
     """The coordinator's sequential walks, lane by lane in lock step.
 
     order (B, C) int64 priority permutation whose first n_live[b] entries
-    are the coflows with live ports; cnt (B, C, 2P) f32 live-flow counts
-    [senders | receivers]; avail0 (B, 2P) f32 port capacities; min_rate
-    (B,) f32 admission floor; wc (B,) f32 work-conservation gate (> 0 =
-    on). Returns (rate, admitted, wc_rate, wc_flow): with `flows` the
+    are the coflows with live ports; cnt (B, C, W) f32 live-flow counts
+    and avail0 (B, W) f32 capacities over W = 2P + 2Lf columns [senders
+    | receivers | uplinks | downlinks] (Lf = `num_links`, 0 on the big
+    switch); min_rate (B,) f32 admission floor; wc (B,) f32 work-
+    conservation gate (> 0 = on). Returns (rate, admitted, wc_rate,
+    wc_flow, avail): `avail` (B, W) is the capacity left after
+    admission. With `admit_only` the walk stops there (the max-min fill
+    runs next, `wc_rate` zero, `wc_flow` None); else with `flows` the
     per-flow greedy fill (`wc_rate` all zero, as in the reference),
     without it the coflow-granular fill (`wc_flow` None).
     """
-    B, C, P2 = cnt.shape
+    B, C, W = cnt.shape
     dev = cnt.device
     rows = torch.arange(B, device=dev)
     has = cnt > 0
@@ -94,21 +108,28 @@ def tick_walk_ref(order: torch.Tensor, n_live: torch.Tensor,
     # D4 work conservation, gated by wc via the trip count
     n_wc = torch.where(wc > 0, n_live, 0)
     wc_rate = torch.zeros(B, C, dtype=torch.float32, device=dev)
+    if admit_only:
+        return rate, admitted, wc_rate, None, avail
     if flows is None:
         # coflow-granular fill (jax_coordinator.py:330-340)
+        left = avail
         for j in range(int(n_wc.max()) if B else 0):
             on = j < n_wc
             c = order[:, j]
-            r = _madd(avail, inv, bigm, rows, c)
+            r = _madd(left, inv, bigm, rows, c)
             ok = on & ~admitted[rows, c] & (r > 0) & (r < BIG)
             r = torch.where(ok, r, 0.0)
-            avail = avail - r[:, None] * cnt[rows, c]
+            left = left - r[:, None] * cnt[rows, c]
             wc_rate[rows, c] = torch.where(on, r, wc_rate[rows, c])
-        return rate, admitted, wc_rate, None
+        return rate, admitted, wc_rate, None, avail
 
-    # per-flow greedy fill (jax_coordinator.py:387-407): live flows of
-    # missed coflows in (coflow priority, flow index) order
-    P = P2 // 2
+    # per-flow greedy fill (jax_coordinator.py:387-434): live flows of
+    # missed coflows in (coflow priority, flow index) order, each taking
+    # the least residual of its ports and (leaf-spine) its two links
+    Lf = num_links
+    P = W // 2 - Lf
+    if Lf and (flows.up is None or flows.dn is None):
+        raise ValueError("a leaf-spine walk needs the flows' up/dn links")
     F = flows.cid.shape[1]
     ar_c = torch.arange(C, device=dev).expand(B, C)
     hp = torch.zeros(B, C, dtype=torch.bool, device=dev).scatter_(
@@ -123,19 +144,95 @@ def tick_walk_ref(order: torch.Tensor, n_live: torch.Tensor,
         o = torch.sort(key.gather(1, flist), dim=-1, stable=True).indices
         flist = flist.gather(1, o)
     n_cand = cand.sum(-1)
-    a_s, a_r = avail[:, :P].clone(), avail[:, P:].clone()
+    a_s, a_r = avail[:, :P].clone(), avail[:, P:2 * P].clone()
+    if Lf:
+        # the links get one BIG slot each at index Lf: a flow that stays
+        # in its leaf is never link-capped, and the slot absorbs its
+        # subtracts (BIG - r rounds back to BIG, as in the reference)
+        big = torch.full((B, 1), BIG, dtype=torch.float32, device=dev)
+        a_u = torch.cat([avail[:, 2 * P:2 * P + Lf], big], dim=1)
+        a_d = torch.cat([avail[:, 2 * P + Lf:], big], dim=1)
     wc_flow = torch.zeros(B, F, dtype=torch.float32, device=dev)
     for i in range(int(n_cand.max()) if B else 0):
         on = i < n_cand
         f = flist[:, i]
-        sp = flows.src[rows, f]
-        dq = flows.dst[rows, f]
-        r = torch.minimum(a_s[rows, sp], a_r[rows, dq]).clamp(min=0.0)
-        r = torch.where(on, r, 0.0)
+        sp, dq = flows.src[rows, f], flows.dst[rows, f]
+        r = torch.minimum(a_s[rows, sp], a_r[rows, dq])
+        if Lf:
+            u, d = flows.up[rows, f], flows.dn[rows, f]
+            r = torch.minimum(r, torch.minimum(a_u[rows, u], a_d[rows, d]))
+        r = torch.where(on, r.clamp(min=0.0), 0.0)
         a_s[rows, sp] = a_s[rows, sp] - r
         a_r[rows, dq] = a_r[rows, dq] - r
+        if Lf:
+            a_u[rows, u] = a_u[rows, u] - r
+            a_d[rows, d] = a_d[rows, d] - r
         wc_flow[rows, f] = torch.where(on, r, wc_flow[rows, f])
-    return rate, admitted, wc_rate, wc_flow
+    return rate, admitted, wc_rate, wc_flow, avail
 
 
-__all__ = ["BIG", "WalkFlows", "contention_ref", "tick_walk_ref"]
+def maxmin_rounds(width: int) -> int:
+    """The reference's round count for W = 2(P + Lf) rows: 2 Pe + 2 with
+    Pe = P + Lf rows per side (`repro/kernels/maxmin.py:78`)."""
+    return width + 2
+
+
+def maxmin_ref(src: torch.Tensor, dst: torch.Tensor, cand: torch.Tensor,
+               avail: torch.Tensor, up: Optional[torch.Tensor] = None,
+               dn: Optional[torch.Tensor] = None,
+               num_links: int = 0) -> torch.Tensor:
+    """Max-min fair rates of the candidate flows by progressive filling,
+    lane by lane in lock step (`repro.kernels.ref.maxmin_ref` with the
+    one-hot columns replaced by row ids).
+
+    avail (B, W) f32 row capacities over W = 2P + 2Lf rows in the tick
+    walk's layout [sender ports | receiver ports | uplinks | downlinks]
+    (Lf = `num_links`); src/dst (B, F) int64 ports; up/dn (B, F) int64
+    leaves in [0, Lf] (Lf = no link; None when Lf = 0); cand (B, F) bool.
+    Flow f uses rows src, P + dst and, when it leaves its leaf, 2P + up
+    and 2P + Lf + dn. Each of the W + 2 rounds counts the active flows
+    per row, takes the least fair level avail / count, freezes the
+    active flows on every row within 1e-12 of it at that level and
+    subtracts level x frozen flows from every row (clamped at 0). Counts
+    are 0/1 sums, exact in any order. Returns (B, F) f32 rates, 0 for
+    non-candidates."""
+    B, W = avail.shape
+    F = src.shape[1]
+    dev = avail.device
+    Lf = num_links
+    P = W // 2 - Lf
+    # row ids per flow; row W is a dummy that the no-link sentinel hits
+    ids = [src, P + dst]
+    if Lf:
+        ids.append(torch.where(up < Lf, 2 * P + up, W))
+        ids.append(torch.where(dn < Lf, 2 * P + Lf + dn, W))
+    f32 = torch.float32
+    rates = torch.zeros(B, F, dtype=f32, device=dev)
+    act = cand.clone()
+    avail = avail.clone()
+    for _ in range(maxmin_rounds(W)):
+        actf = act.to(f32)
+        cnt = torch.zeros(B, W + 1, dtype=f32, device=dev)
+        for r in ids:
+            cnt.scatter_add_(1, r, actf)
+        cnt = cnt[:, :W]
+        lvl_r = torch.where(cnt > 0, avail / cnt.clamp(min=1.0), BIG)
+        lvl = lvl_r.amin(-1)                                  # (B,)
+        sat = (lvl_r <= (lvl + 1e-12)[:, None]) & (cnt > 0)
+        sat = torch.cat([sat, sat.new_zeros(B, 1)], dim=1)
+        inc = sat.gather(1, ids[0])
+        for r in ids[1:]:
+            inc = inc | sat.gather(1, r)
+        hit = act & inc
+        rates = torch.where(hit, lvl[:, None], rates)
+        hitf = hit.to(f32)
+        n_hit = torch.zeros(B, W + 1, dtype=f32, device=dev)
+        for r in ids:
+            n_hit.scatter_add_(1, r, hitf)
+        avail = (avail - lvl[:, None] * n_hit[:, :W]).clamp(min=0.0)
+        act = act & ~hit
+    return rates
+
+
+__all__ = ["BIG", "WalkFlows", "contention_ref", "maxmin_ref",
+           "maxmin_rounds", "tick_walk_ref"]

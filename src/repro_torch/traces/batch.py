@@ -18,9 +18,13 @@ Padding semantics (DESIGN.md §3):
 * ``arrival_rank`` is the host-computed exact FIFO rank (stable argsort
   of arrival) — float arrivals may collide in f32, ranks cannot.
 
-The leaf-spine link fields stay zero-width and ``pilot`` stays None,
-exactly as the reference leaves them for a big-switch, clairvoyant
-pack; leaf-spine and pilot sampling are later slices of the port.
+``pack(..., topology=LeafSpine(...))`` also writes the leaf-spine link
+layout (Lf leaves): per-flow uplink/downlink leaf ids with the sentinel
+Lf for "touches no shared link", per-leaf link capacities, and the
+(cid, link)-sorted permutations with searchsorted group bounds that
+make per-(coflow, link) live counts one segment sum. On the big switch
+(``topology`` None or `BigSwitch`) the link fields are zero-width.
+``pilot`` stays None: pilot sampling is a later slice of the port.
 
 Pad sizes round up to multiples (flows: 64, coflows: 16).
 """
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.core.coflow import Trace
 from repro_torch.fabric.state import FlowTable
+from repro_torch.fabric.topology import leaf_links_for
 
 
 def _round_up(n: int, m: int) -> int:
@@ -73,17 +78,17 @@ class TraceBatch(NamedTuple):
     # REAL flows occupy [flow_lo, flow_hi) in ascending size order, so
     # the §4.3 finished-flow median is an order-statistics lookup.
     perm_size: np.ndarray   # (B, F) int32
-    # leaf-spine link layout: zero-width (Lf = 0) on the big switch
-    link_up: np.ndarray     # (B, F) int32, all Lf = "no link"
-    link_dn: np.ndarray     # (B, F) int32
-    bw_up: np.ndarray       # (B, 0) float32
-    bw_dn: np.ndarray       # (B, 0) float32
-    perm_up: np.ndarray     # (B, F) int32 identity
-    perm_dn: np.ndarray     # (B, F) int32 identity
-    lo_up: np.ndarray       # (B, C, 0) int32
-    hi_up: np.ndarray       # (B, C, 0) int32
-    lo_dn: np.ndarray       # (B, C, 0) int32
-    hi_dn: np.ndarray       # (B, C, 0) int32
+    # leaf-spine link layout (Lf leaves; zero-width on the big switch)
+    link_up: np.ndarray     # (B, F) int32 uplink leaf, Lf = "no link"
+    link_dn: np.ndarray     # (B, F) int32 downlink leaf, Lf = "no link"
+    bw_up: np.ndarray       # (B, Lf) float32 uplink capacities
+    bw_dn: np.ndarray       # (B, Lf) float32 downlink capacities
+    perm_up: np.ndarray     # (B, F) int32 flow order sorted by (cid, up)
+    perm_dn: np.ndarray     # (B, F) int32 flow order sorted by (cid, dn)
+    lo_up: np.ndarray       # (B, C, Lf) int32 group start in perm_up order
+    hi_up: np.ndarray       # (B, C, Lf) int32 group end
+    lo_dn: np.ndarray       # (B, C, Lf) int32
+    hi_dn: np.ndarray       # (B, C, Lf) int32
     pilot: np.ndarray | None = None  # pilot sampling: not packed (None)
 
     @property
@@ -102,16 +107,24 @@ class TraceBatch(NamedTuple):
     def num_ports(self) -> int:
         return self.bw_send.shape[1]
 
+    @property
+    def num_leaf_links(self) -> int:
+        """Lf, the leaves of the packed leaf-spine topology (0 = big
+        switch: the tick leaves the link machinery out)."""
+        return self.bw_up.shape[1]
+
 
 def empty_batch(num_rows: int, *, flow_capacity: int, coflow_capacity: int,
-                port_capacity: int) -> TraceBatch:
+                port_capacity: int, leaf_links: int = 0) -> TraceBatch:
     """An all-padding TraceBatch: every row is a blank row (no valid
-    coflows or flows), filled in place by `pack_row`."""
+    coflows or flows), filled in place by `pack_row`. `leaf_links` is
+    the Lf of the link layout (0 = big switch)."""
     B, F = num_rows, flow_capacity
     C, P = coflow_capacity, port_capacity
-    if B <= 0 or P <= 0 or F < 0 or C < 0:
+    Lf = leaf_links
+    if B <= 0 or P <= 0 or F < 0 or C < 0 or Lf < 0:
         raise ValueError("empty_batch needs positive rows/ports and "
-                         "non-negative flow/coflow capacities")
+                         "non-negative flow/coflow/link capacities")
     ident = np.tile(np.arange(F, dtype=np.int32), (B, 1))
     return TraceBatch(
         cid=np.zeros((B, F), np.int32), src=np.zeros((B, F), np.int32),
@@ -131,15 +144,15 @@ def empty_batch(num_rows: int, *, flow_capacity: int, coflow_capacity: int,
         lo_dst=np.zeros((B, C, P), np.int32),
         hi_dst=np.zeros((B, C, P), np.int32),
         perm_size=ident.copy(),
-        link_up=np.zeros((B, F), np.int32),
-        link_dn=np.zeros((B, F), np.int32),
-        bw_up=np.zeros((B, 0), np.float32),
-        bw_dn=np.zeros((B, 0), np.float32),
+        link_up=np.full((B, F), Lf, np.int32),
+        link_dn=np.full((B, F), Lf, np.int32),
+        bw_up=np.zeros((B, Lf), np.float32),
+        bw_dn=np.zeros((B, Lf), np.float32),
         perm_up=ident.copy(), perm_dn=ident.copy(),
-        lo_up=np.zeros((B, C, 0), np.int32),
-        hi_up=np.zeros((B, C, 0), np.int32),
-        lo_dn=np.zeros((B, C, 0), np.int32),
-        hi_dn=np.zeros((B, C, 0), np.int32),
+        lo_up=np.zeros((B, C, Lf), np.int32),
+        hi_up=np.zeros((B, C, Lf), np.int32),
+        lo_dn=np.zeros((B, C, Lf), np.int32),
+        hi_dn=np.zeros((B, C, Lf), np.int32),
     )
 
 
@@ -166,12 +179,24 @@ def blank_row(tb: TraceBatch, b: int) -> None:
     tb.lo_dst[b] = 0
     tb.hi_dst[b] = 0
     tb.perm_size[b] = np.arange(F, dtype=np.int32)
+    tb.link_up[b] = tb.num_leaf_links
+    tb.link_dn[b] = tb.num_leaf_links
+    tb.bw_up[b] = 0.0
+    tb.bw_dn[b] = 0.0
+    tb.perm_up[b] = np.arange(F, dtype=np.int32)
+    tb.perm_dn[b] = np.arange(F, dtype=np.int32)
+    tb.lo_up[b] = 0
+    tb.hi_up[b] = 0
+    tb.lo_dn[b] = 0
+    tb.hi_dn[b] = 0
 
 
-def pack_row(tb: TraceBatch, b: int, t: FlowTable) -> None:
+def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
+             topology=None) -> None:
     """Write one FlowTable into row `b` in place (blanking it first),
-    recomputing the row's host-side permutations and segment layouts.
-    Raises when the row's capacities cannot hold the table."""
+    recomputing the row's host-side permutations and segment layouts,
+    and the link layout when `topology` is a `LeafSpine`. Raises when
+    the row's capacities cannot hold the table."""
     f, c = t.size.shape[0], t.num_coflows
     F, C, P = tb.max_flows, tb.max_coflows, tb.num_ports
     if f > F or c > C or t.num_ports > P:
@@ -214,17 +239,45 @@ def pack_row(tb: TraceBatch, b: int, t: FlowTable) -> None:
     # that coflow's real flows.
     tb.perm_size[b] = np.lexsort(
         (tb.size[b], ~tb.flow_valid[b], tb.cid[b])).astype(np.int32)
+    # leaf-spine link layout (blank_row already reset it to "no links")
+    Lf = tb.num_leaf_links
+    need = 0 if topology is None else topology.leaf_count(t.num_ports)
+    if need == 0:
+        return
+    if need > Lf:
+        raise ValueError(
+            f"slab row link capacity exceeded: topology needs {need} "
+            f"leaves > {Lf} packed")
+    cap_up, cap_dn = topology.link_caps(t.bw_send, t.bw_recv)
+    tb.bw_up[b, :need] = cap_up
+    tb.bw_dn[b, :need] = cap_dn
+    up, dn = topology.flow_links(t.src, t.dst)
+    # sentinel Lf = "touches no shared link" (intra-leaf; also the blank
+    # value padding keeps), left out of the (cid, link) grid
+    tb.link_up[b, :f] = np.where(up >= 0, up, Lf).astype(np.int32)
+    tb.link_dn[b, :f] = np.where(dn >= 0, dn, Lf).astype(np.int32)
+    grid = (np.arange(C, dtype=np.int64)[:, None] * (Lf + 1)
+            + np.arange(Lf, dtype=np.int64)[None, :]).ravel()
+    for link, perm_out, lo_out, hi_out in (
+            (tb.link_up[b, :f], tb.perm_up, tb.lo_up, tb.hi_up),
+            (tb.link_dn[b, :f], tb.perm_dn, tb.lo_dn, tb.hi_dn)):
+        order = np.lexsort((link, t.cid)).astype(np.int32)
+        perm_out[b, :f] = order
+        keys = t.cid[order].astype(np.int64) * (Lf + 1) + link[order]
+        lo_out[b] = np.searchsorted(keys, grid, "left").reshape(C, Lf)
+        hi_out[b] = np.searchsorted(keys, grid, "right").reshape(C, Lf)
 
 
 def pack(traces: Sequence[Union[Trace, FlowTable]], *,
          port_bw: float = None,
          flow_multiple: int = 64, coflow_multiple: int = 16,
          flow_capacity: int = 0, coflow_capacity: int = 0,
-         port_capacity: int = 0) -> TraceBatch:
+         port_capacity: int = 0, topology=None) -> TraceBatch:
     """Pad/pack traces (or FlowTables) into one host-side TraceBatch.
 
     `port_bw` is required when packing `Trace` objects (FlowTables carry
     their own per-port bandwidths). DAG stage dependencies are rejected.
+    `topology` (None, `BigSwitch` or `LeafSpine`) sets the link layout.
     """
     tables: List[FlowTable] = []
     for t in traces:
@@ -247,10 +300,11 @@ def pack(traces: Sequence[Union[Trace, FlowTable]], *,
     C = max(_round_up(max(t.num_coflows for t in tables), coflow_multiple),
             coflow_capacity)
     P = max(max(t.num_ports for t in tables), port_capacity)
+    Lf = leaf_links_for(topology, P)
     tb = empty_batch(B, flow_capacity=F, coflow_capacity=C,
-                     port_capacity=P)
+                     port_capacity=P, leaf_links=Lf)
     for b, t in enumerate(tables):
-        pack_row(tb, b, t)
+        pack_row(tb, b, t, topology=topology if Lf else None)
     return tb
 
 

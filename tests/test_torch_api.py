@@ -107,7 +107,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (dict(policy="aalo"), ValueError, "no batched implementation"),
     (dict(fidelity="packet"), ValueError, "unknown fidelity"),
     (dict(mechanisms={"bogus": True}), ValueError, "unknown mechanism"),
-    (dict(topology=object()), NotImplementedError, "item 5"),
+    (dict(topology=object()), TypeError, "BigSwitch, LeafSpine"),
     (dict(clairvoyance=False), NotImplementedError, "item 6"),
     (dict(traces=(_trace(),)), ValueError, "exactly one trace source"),
 ])

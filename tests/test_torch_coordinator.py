@@ -114,6 +114,11 @@ def test_tick_matches_jax_on_mixed_done_live_tables(trace):
 
 
 def _jax_lane(d, b, flows):
+    leaf = "cnt_x" in d
+
+    def opt(k):
+        return jnp.asarray(d[k][b]) if leaf else None
+
     batch = jc.CoflowBatch(
         active=jnp.asarray(d["active"][b]),
         arrival=jnp.asarray(d["arrival"][b]),
@@ -121,10 +126,11 @@ def _jax_lane(d, b, flows):
         cnt_s=jnp.asarray(d["cnt_s"][b]), cnt_r=jnp.asarray(d["cnt_r"][b]),
         bw_s=jnp.asarray(d["bw_s"][b]), bw_r=jnp.asarray(d["bw_r"][b]),
         total=jnp.asarray(d["total"][b]), mixed=jnp.asarray(d["mixed"][b]),
-        m_dyn=jnp.asarray(d["m_dyn"][b]))
+        m_dyn=jnp.asarray(d["m_dyn"][b]), cnt_x=opt("cnt_x"),
+        bw_x=opt("bw_x"))
     fv = jc.FlowView(jnp.asarray(d["cid"][b]), jnp.asarray(d["src"][b]),
-                     jnp.asarray(d["dst"][b]),
-                     jnp.asarray(d["live"][b])) if flows else None
+                     jnp.asarray(d["dst"][b]), jnp.asarray(d["live"][b]),
+                     up=opt("up"), dn=opt("dn")) if flows else None
     state = jc.CoordState(jnp.asarray(d["queue"][b]),
                           jnp.asarray(d["deadline"][b]),
                           jnp.asarray(d["running"][b]))
@@ -154,6 +160,72 @@ def test_batched_tick_matches_jax_per_lane(params, mech, flows):
         js, jout = jc.schedule_tick(jstate, jbatch, jnp.float32(d["now"]),
                                     cp=jcp, flows=jfv)
         _compare(jout, js, pout, ps, b, bw=params.port_bw)
+
+
+@pytest.mark.parametrize("wc_fill", ["greedy", "maxmin"])
+@pytest.mark.parametrize("hosts_per_leaf,oversub", [(4, 4.0), (3, 2.0),
+                                                    (5, 1.0)])
+def test_leafspine_tick_matches_jax_per_lane(wc_fill, hosts_per_leaf,
+                                             oversub):
+    """The tick with the leaf-spine link columns (W = 2P + 2Lf) and
+    either work-conservation fill, B = 3 lanes, against three JAX ticks:
+    queue, order, contention, expiry and admission equal, rates within
+    the C1 bar (rtol 1e-6 plus 1e-6 of the port rate)."""
+    B, C, P = 3, 48, 10
+    d = random_tick_inputs(B, C, P, seed=hosts_per_leaf, params=UNIT,
+                           hosts_per_leaf=hosts_per_leaf, oversub=oversub)
+    cp = co.CoordParams.from_params(UNIT)
+    jcp = jc.CoordParams.from_params(_jax_params(UNIT))
+    state, batch, fv = torch_tick_args(d, "cpu")
+    ps, pout = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                                flows=fv, wc_fill=wc_fill)
+    assert pout["wc_flow"].any()
+    for b in range(B):
+        jstate, jbatch, jfv = _jax_lane(d, b, True)
+        js, jout = jc.schedule_tick(jstate, jbatch, jnp.float32(d["now"]),
+                                    cp=jcp, flows=jfv, wc_fill=wc_fill)
+        _compare(jout, js, pout, ps, b, bw=UNIT.port_bw)
+
+
+def test_leafspine_coflow_fill_matches_jax():
+    """fidelity="coflow" on a leaf-spine tick: the coflow-granular fill
+    runs its MADD over the link columns too."""
+    d = random_tick_inputs(2, 40, 8, seed=3, params=UNIT, hosts_per_leaf=4)
+    cp = co.CoordParams.from_params(UNIT)
+    jcp = jc.CoordParams.from_params(_jax_params(UNIT))
+    state, batch, _ = torch_tick_args(d, "cpu", flows=False)
+    ps, pout = co.schedule_tick(state, batch, float(d["now"]), cp=cp)
+    for b in range(2):
+        jstate, jbatch, _ = _jax_lane(d, b, False)
+        js, jout = jc.schedule_tick(jstate, jbatch, jnp.float32(d["now"]),
+                                    cp=jcp)
+        _compare(jout, js, pout, ps, b, bw=UNIT.port_bw)
+
+
+def test_one_to_one_links_never_bind_in_the_tick():
+    """At 1:1 an uplink's capacity is the sum of its ports', so the link
+    columns never bind: the leaf-spine tick equals the big-switch tick
+    output by output, bit for bit (greedy fill)."""
+    d = random_tick_inputs(3, 48, 8, seed=9, params=UNIT, hosts_per_leaf=4,
+                           oversub=1.0)
+    cp = co.CoordParams.from_params(UNIT)
+    state, batch, fv = torch_tick_args(d, "cpu")
+    _, leaf = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                               flows=fv)
+    _, big = co.schedule_tick(state, batch._replace(cnt_x=None, bw_x=None),
+                              float(d["now"]), cp=cp,
+                              flows=fv._replace(up=None, dn=None))
+    for k, v in big.items():
+        assert torch.equal(leaf[k], v), k
+
+
+def test_unknown_wc_fill_raises():
+    d = random_tick_inputs(1, 8, 4, seed=0, params=UNIT)
+    state, batch, fv = torch_tick_args(d, "cpu")
+    with pytest.raises(ValueError, match="wc_fill"):
+        co.schedule_tick(state, batch, 1.0,
+                         cp=co.CoordParams.from_params(UNIT), flows=fv,
+                         wc_fill="random")
 
 
 def test_table2_random_batch_matches_jax():

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA device (marker `gpu`) and skips
-without one; run them on the card with
+"""The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill)
+against their plain PyTorch versions, on the card. Every test here needs
+a CUDA device (marker `gpu`) and skips without one; run them on the card
+with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
@@ -22,12 +23,15 @@ UNIT = SchedulerParams(port_bw=1.0, delta=1e-2, start_threshold=4.0,
 
 
 def random_tick_inputs(B, C, P, *, seed, params=UNIT, max_width=6,
-                       flow_multiple=64):
+                       flow_multiple=64, hosts_per_leaf=0, oversub=4.0):
     """Seeded numpy inputs of one coordinator tick for B lanes: live
     flows stored contiguous per coflow (traces.batch's layout), the
     (coflow, port) live counts they imply, Eq. 1 values spread across
     the queue thresholds, a carried state with some expired deadlines,
-    and the optional §4.3 / ablation inputs."""
+    and the optional §4.3 / ablation inputs. With `hosts_per_leaf` > 0
+    also a leaf-spine layout: per-flow up/dn leaves (sentinel Lf for a
+    flow inside its leaf), the (coflow, link) live counts `cnt_x` and
+    the link capacities `bw_x` (subtended port rate / `oversub`)."""
     rng = np.random.default_rng(seed)
     th0 = params.thresholds()[0]
     widths = rng.integers(1, max_width + 1, (B, C))
@@ -61,6 +65,25 @@ def random_tick_inputs(B, C, P, *, seed, params=UNIT, max_width=6,
     q_true = queue_of(m * width, params)
     queue = np.where(rng.uniform(size=(B, C)) < 0.6, q_true,
                      rng.integers(-1, params.num_queues, (B, C)))
+    if hosts_per_leaf:
+        Lf = -(-P // hosts_per_leaf)
+        ls, ld = out["src"] // hosts_per_leaf, out["dst"] // hosts_per_leaf
+        up = np.where(ls != ld, ls, Lf).astype(np.int32)
+        dn = np.where(ls != ld, ld, Lf).astype(np.int32)
+        cnt_x = np.zeros((B, C, 2 * Lf + 2), np.float32)
+        for b in range(B):
+            lv = out["live"][b]
+            np.add.at(cnt_x[b], (out["cid"][b][lv], up[b][lv]), 1.0)
+            np.add.at(cnt_x[b], (out["cid"][b][lv], Lf + 1 + dn[b][lv]),
+                      1.0)
+        cap = np.bincount(np.arange(P) // hosts_per_leaf,
+                          weights=np.full(P, params.port_bw),
+                          minlength=Lf) / oversub
+        out.update(up=up, dn=dn,
+                   cnt_x=np.concatenate([cnt_x[..., :Lf],
+                                         cnt_x[..., Lf + 1:-1]], -1),
+                   bw_x=np.tile(np.concatenate([cap, cap]), (B, 1))
+                   .astype(np.float32))
     out.update(
         active=active, width=width, m=m.astype(np.float32),
         arrival=np.stack([rng.permutation(C) for _ in range(B)]
@@ -84,6 +107,7 @@ def torch_tick_args(d, device, *, flows=True):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
     i64, f32, b8 = torch.int64, torch.float32, torch.bool
+    leaf = "cnt_x" in d
     state = co.CoordState(t(d["queue"], i64), t(d["deadline"], f32),
                           t(d["running"], b8))
     batch = co.CoflowBatch(
@@ -92,10 +116,15 @@ def torch_tick_args(d, device, *, flows=True):
         cnt_s=t(d["cnt_s"], f32), cnt_r=t(d["cnt_r"], f32),
         bw_s=t(d["bw_s"], f32), bw_r=t(d["bw_r"], f32),
         total=t(d["total"], f32), mixed=t(d["mixed"], b8),
-        m_dyn=t(d["m_dyn"], f32))
+        m_dyn=t(d["m_dyn"], f32),
+        cnt_x=t(d["cnt_x"], f32) if leaf else None,
+        bw_x=t(d["bw_x"], f32) if leaf else None)
     fv = co.FlowView(t(d["cid"], i64), t(d["src"], i64), t(d["dst"], i64),
                      t(d["live"], b8), t(d["flow_lo"], i64),
-                     t(d["flow_hi"], i64)) if flows else None
+                     t(d["flow_hi"], i64),
+                     up=t(d["up"], i64) if leaf else None,
+                     dn=t(d["dn"], i64) if leaf else None) \
+        if flows else None
     return state, batch, fv
 
 
@@ -159,5 +188,147 @@ def test_fleet_replay_on_card_matches_cpu(cuda):
     fleet = tuple(tiny_trace(16, 12, seed=s) for s in range(3))
     gpu = run(Scenario(traces=fleet))
     cpu = run(Scenario(traces=fleet, device="cpu"))
+    assert gpu.events == cpu.events and gpu.ticks == cpu.ticks
+    np.testing.assert_array_equal(gpu.cct, cpu.cct)
+
+
+def random_maxmin_inputs(B, P, Lf, F, *, seed, cand_frac=0.3, device):
+    """Seeded (src, dst, up, dn, cand, avail) of the max-min fill: ports
+    and leaves drawn uniformly (leaf Lf = no link), row capacities
+    uniform in (0, 1.25e8) B/s, in the tick walk's W = 2P + 2Lf
+    layout."""
+    rng = np.random.default_rng(seed)
+
+    def t(x, dtype):
+        return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    i64 = torch.int64
+    return dict(
+        src=t(rng.integers(0, P, (B, F)), i64),
+        dst=t(rng.integers(0, P, (B, F)), i64),
+        up=t(rng.integers(0, Lf + 1, (B, F)), i64) if Lf else None,
+        dn=t(rng.integers(0, Lf + 1, (B, F)), i64) if Lf else None,
+        cand=t(rng.uniform(size=(B, F)) < cand_frac, torch.bool),
+        avail=t(rng.uniform(0.0, 1.25e8, (B, 2 * P + 2 * Lf)),
+                torch.float32),
+        num_links=Lf)
+
+
+def _maxmin(args, **kw):
+    a = dict(args)
+    return ops.maxmin_rates(a.pop("src"), a.pop("dst"), a.pop("cand"),
+                            a.pop("avail"), **a, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,P,Lf,F,frac", [
+    (1, 2, 0, 3, 0.9), (3, 16, 4, 200, 0.7), (4, 150, 38, 2048, 0.5),
+    (16, 150, 38, 30016, 0.1), (16, 150, 38, 30016, 0.6)])
+def test_maxmin_kernel_matches_plain(cuda, B, P, Lf, F, frac):
+    """K3 equals its plain version bit for bit, up to the fleet's shape
+    (16 lanes, 188 rows a side, 30,016 flows)."""
+    args = random_maxmin_inputs(B, P, Lf, F, seed=F + P, cand_frac=frac,
+                                device=cuda)
+    got = _maxmin(args)
+    want = _maxmin(args, force="ref")
+    torch.cuda.synchronize()
+    assert got.any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_row", [1, 3])
+def test_maxmin_kernel_tie_heavy(cuda, per_row):
+    """Every row at one capacity with `per_row` flows on each port:
+    many rows saturate in the same round."""
+    B, P = 2, 150
+    F = per_row * P
+    i = torch.arange(F, device=cuda).expand(B, F)
+    args = dict(src=i % P, dst=(i + 1) % P, up=None, dn=None,
+                cand=torch.ones(B, F, dtype=torch.bool, device=cuda),
+                avail=torch.ones(B, 2 * P, device=cuda), num_links=0)
+    got = _maxmin(args)
+    want = _maxmin(args, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.full_like(got, 1.0 / per_row))
+
+
+@pytest.mark.gpu
+def test_maxmin_kernel_no_candidates(cuda):
+    args = random_maxmin_inputs(3, 20, 5, 500, seed=2, cand_frac=0.0,
+                                device=cuda)
+    got = _maxmin(args)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 500) and not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["flow", "coflow", "admit"])
+@pytest.mark.parametrize("B,C,P,hpl", [(4, 64, 6, 0), (3, 512, 150, 0),
+                                       (4, 64, 10, 4), (3, 512, 150, 4)])
+def test_walk_kernel_matches_plain(cuda, B, C, P, hpl, mode):
+    """K2 over W = 2P + 2Lf columns (Lf = 0: the big-switch walk) in
+    each mode, against its plain version, output by output, exactly."""
+    d = random_tick_inputs(B, C, P, seed=B + C + hpl, params=UNIT,
+                           hosts_per_leaf=hpl)
+    _, batch, fv = torch_tick_args(d, cuda)
+    Lf = batch.cnt_x.shape[-1] // 2 if hpl else 0
+    cnt = torch.cat([batch.cnt_s, batch.cnt_r]
+                    + ([batch.cnt_x] if hpl else []), -1)
+    avail0 = torch.cat([batch.bw_s, batch.bw_r]
+                       + ([batch.bw_x] if hpl else []), -1)
+    # a priority order: arrival rank, coflows with live ports first
+    hp = batch.active & ((batch.cnt_s > 0).any(-1)
+                         | (batch.cnt_r > 0).any(-1))
+    order = torch.argsort(batch.arrival, dim=-1)
+    order = order.gather(1, torch.sort(
+        (~hp).long().gather(1, order), dim=-1, stable=True).indices)
+    n_live = hp.sum(-1)
+    min_rate = torch.full((B,), UNIT.min_rate_frac * UNIT.port_bw,
+                          device=cuda)
+    wc = torch.ones(B, device=cuda)
+    args = (order, n_live, cnt, avail0, min_rate, wc,
+            None if mode == "coflow" else fv)
+    kw = dict(num_links=Lf, admit_only=mode == "admit")
+    got = ops.tick_walk(*args, **kw)
+    want = ops.tick_walk(*args, **kw, force="ref")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wc_fill", ["greedy", "maxmin"])
+@pytest.mark.parametrize("B,C,P", [(4, 64, 10), (3, 512, 150)])
+def test_leafspine_tick_kernels_match_plain(cuda, B, C, P, wc_fill):
+    """A whole leaf-spine tick with K1 + K2 (+ K3 under max-min) equals
+    the tick with the plain versions, output by output, exactly."""
+    d = random_tick_inputs(B, C, P, seed=B + C, params=UNIT,
+                           hosts_per_leaf=4)
+    state, batch, fv = torch_tick_args(d, cuda)
+    cp = co.CoordParams.from_params(UNIT)
+    _, got = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                              flows=fv, wc_fill=wc_fill)
+    _, want = co.schedule_tick(state, batch, float(d["now"]), cp=cp,
+                               flows=fv, wc_fill=wc_fill, force="ref")
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+def test_leafspine_fleet_replay_on_card_matches_cpu(cuda):
+    from repro_torch.api import Scenario, run
+    from repro_torch.fabric.topology import LeafSpine
+    from repro_torch.traces.synth import tiny_trace
+
+    fleet = tuple(tiny_trace(16, 12, seed=s) for s in range(3))
+    topo = LeafSpine(hosts_per_leaf=4, oversub=4.0, wc_fill="maxmin")
+    gpu = run(Scenario(traces=fleet, topology=topo))
+    cpu = run(Scenario(traces=fleet, topology=topo, device="cpu"))
     assert gpu.events == cpu.events and gpu.ticks == cpu.ticks
     np.testing.assert_array_equal(gpu.cct, cpu.cct)

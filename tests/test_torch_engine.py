@@ -32,6 +32,8 @@ from repro_torch.traces import synth as psynth
 from tests.test_jax_engine import FAMILIES, _trace as jax_family_trace
 
 GOLDEN = Path(__file__).parent / "data" / "torch_port_fb_golden.json"
+LEAF_GOLDEN = Path(__file__).parent / "data" / \
+    "torch_port_leafspine_golden.json"
 FULL = SchedulerParams(port_bw=1.0, delta=1e-2, start_threshold=4.0,
                        growth=4.0, num_queues=5)
 NO_DYN = dataclasses.replace(FULL, dynamics_requeue=False)
@@ -151,6 +153,8 @@ def test_jax_mid_run_state_finishes_in_the_port():
 
 
 def test_from_reference_refuses_what_is_not_ported():
+    """Leaf-spine batches are carried now; pilot sampling (batches and
+    learned lanes) and session states are still refused."""
     from repro.fabric.topology import LeafSpine
 
     tr = [jax_family_trace("uniform", seed=1)]
@@ -158,14 +162,25 @@ def test_from_reference_refuses_what_is_not_ported():
         hosts_per_leaf=3, oversub=2.0))
     ep = jax.tree_util.tree_map(
         np.asarray, jax_engine.EngineParams.from_scheduler(_jp(FULL)))
-    with pytest.raises(NotImplementedError, match="queue A"):
-        engine.from_reference(leaf, ep, device="cpu")
+    tb, _, _ = engine.from_reference(leaf, ep, device="cpu")
+    assert tb.bw_up.shape[-1] == leaf.num_leaf_links > 0
+    np.testing.assert_array_equal(tb.link_up.numpy(), leaf.link_up)
+    piloted = jbatch.pack(tr, port_bw=1.0, sampling=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        engine.from_reference(piloted, ep, device="cpu")
     tb = jbatch.pack(tr, port_bw=1.0)
     learned = jax.tree_util.tree_map(
         np.asarray, jax_engine.EngineParams.from_scheduler(
             _jp(FULL), clairvoyant=False))
     with pytest.raises(NotImplementedError, match="item 6"):
         engine.from_reference(tb, learned, device="cpu")
+    state = jax.tree_util.tree_map(
+        np.asarray, jax_engine._init_batch(tb, jax_engine.EngineParams
+                                           .from_scheduler(_jp(FULL)),
+                                           sweep=False))
+    session = state._replace(rate=np.zeros_like(state.sent))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        engine.from_reference(tb, ep, session, device="cpu")
 
 
 @pytest.mark.slow
@@ -181,3 +196,38 @@ def test_regenerate_fb_golden():
                 events=res.steps // len(gold["seeds"]),
                 jax=jax.__version__)
     GOLDEN.write_text(json.dumps(gold, indent=1) + "\n")
+
+
+@pytest.mark.slow
+def test_regenerate_leafspine_golden():
+    """Recompute the leaf-spine max-min reference: two fb_like_trace(48,
+    150) lanes under LeafSpine(4, 4.0, "maxmin") in the JAX package on
+    the CPU (about 100 s)."""
+    from repro.api import Scenario, run
+    from repro.fabric.topology import LeafSpine
+
+    seeds = (0, 1)
+    topo = LeafSpine(hosts_per_leaf=4, oversub=4.0, wc_fill="maxmin")
+    res = run(Scenario(engine="jax", traces=tuple(
+        jsynth.fb_like_trace(48, 150, seed=s) for s in seeds),
+        topology=topo))
+    gold = {
+        "what": "avg CCT per lane of the JAX package's leaf-spine max-min "
+                "fleet replay, the reference for chip_smoke.py's leaf-spine "
+                "whole-path parity check",
+        "call": "repro.api.run(Scenario(engine='jax', traces=tuple("
+                "fb_like_trace(48, 150, seed=s) for s in (0, 1)), "
+                "topology=LeafSpine(hosts_per_leaf=4, oversub=4.0, "
+                "wc_fill='maxmin')))",
+        "params": "SchedulerParams() defaults, fidelity='flow', dynamics "
+                  "re-queue on",
+        "topology": repr(topo),
+        "platform": "cpu",
+        "jax": jax.__version__,
+        "regenerate": "PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q "
+                      "-m slow tests/test_torch_engine.py -k leafspine_golden",
+        "seeds": list(seeds),
+        "avg_cct": [float(x) for x in res.avg_cct],
+        "events": res.steps // len(seeds),
+    }
+    LEAF_GOLDEN.write_text(json.dumps(gold, indent=1) + "\n")
