@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths through `repro_torch.api.run` on the card
-— a fleet of 16 FB-like traces (526 coflows, 150 ports each, the
-paper's full-width trace) through the Saath coordinator tick, first on
-the big switch, then on a 4:1 leaf-spine fabric with the max-min work-
-conservation fill — and holds each hand-written CUDA kernel of those
-paths against its plain PyTorch version on the same inputs:
+Drives the port's main paths on the card — through `repro_torch.api.run`
+a fleet of 16 FB-like traces (526 coflows, 150 ports each, the paper's
+full-width trace) through the Saath coordinator tick, first on the big
+switch, then on a 4:1 leaf-spine fabric with the max-min work-
+conservation fill; then through `repro_torch.launch.lm_serve.
+ServeSession` Mamba2-1.3B at its published width — and holds each
+hand-written CUDA kernel of those paths against its plain PyTorch
+version on the same inputs:
 
-1. the card's name and power limit; build the three kernels with nvcc
+1. the card's name and power limit; build the four kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
    started together) and print nvcc's register and shared-memory
    report and the build time;
@@ -42,17 +44,39 @@ paths against its plain PyTorch version on the same inputs:
    the plain versions; the rates, `wc_flow` among them, must agree bit
    for bit), and K2's (admission only) and K3's time at that path's
    shapes beside the plain version and the bound; K3's latency floor
-   (rounds x barrier-separated steps) is printed beside it.
+   (rounds x barrier-separated steps) is printed beside it;
+10. K4 (the SSD chunked scan) against `ssd_chunked_ref` on the shapes of
+   `tests/test_kernels.py` and the serve shape (4, 1024, 64, 64, G = 1,
+   N = 128, lc = 128), f32 and bf16, plus the two-half state chaining,
+   at the reference's bar (atol 5e-4 scaled by max|y| at the serve
+   shape, rtol 1e-3, one bf16 rounding step more for a bf16 y); K4's
+   time at the serve shape beside the plain version's and the bound;
+11. full-width whole-path parity: Mamba2-1.3B at its published width,
+   2 layers, f32, weights from `numpy_params(cfg, seed=0)` served by
+   `ServeSession(model=...)`, 2 prompts of 300 tokens and 8 greedy
+   tokens through K4, against the JAX
+   package's numbers (`tests/data/torch_port_mamba2_golden.json`):
+   logits to atol 2e-3, tokens equal (a token may differ only where the
+   golden's top-2 gap is under 1e-3), per-layer SSD state norms (summed
+   in f64) to rtol 1e-4;
+12. the serve main path: `ServeSession("mamba2-1.3b", smoke=False)`, 48
+   layers in bf16, 4 prompts of 1000 tokens and 64 greedy tokens, with
+   the counters set to 0 just before and read just after (K4 = 48 per
+   prefill); prefill ms, decode ms per token, tokens/s, peak device
+   memory; then the same session in f32 with the plain SSD path and
+   with K4, held to phase 11's bar.
 
-Prints a `{"kernels": [...]}` line (`launches` = launches over the two
-main-path runs, split by path in `launches_by_path`), the nvidia-smi
+Prints a `{"kernels": [...]}` line (`launches` = launches over the
+three main-path runs, split by path in `launches_by_path`), the nvidia-smi
 line, and as the last line `{"ok": true, "device": {...}}`. Any failed
 phase exits non-zero before the result lines. Exits non-zero without a
 CUDA device.
 
-`python3 chip_smoke.py --profile` adds one profiled chunk of each main
-path (`profile_chunk`): wall time per event step, device busy share,
-kernel launches per step and the kernels with the most device time.
+`python3 chip_smoke.py --profile` adds one profiled chunk of each fleet
+path (`profile_chunk`) and one profiled prefill and 16 decode steps of
+the serve path (`profile_serve`): wall time per event step, prefill or
+token, device busy share, kernel launches and the kernels with the most
+device time.
 """
 import json
 import subprocess
@@ -63,9 +87,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_fb_golden.json"
 LEAF_GOLDEN = ROOT / "tests" / "data" / "torch_port_leafspine_golden.json"
+MAMBA_GOLDEN = ROOT / "tests" / "data" / "torch_port_mamba2_golden.json"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; used for 32-bit word ops too
+BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
 FLEET = 16
 COFLOWS, PORTS = 526, 150
 PARITY_COFLOWS = 48
@@ -73,6 +99,15 @@ CAPTURE_EVERY = 64
 # the barrier-separated steps of one max-min round in csrc/maxmin.cu
 # (zero, count, level + min, saturate, freeze, subtract)
 MAXMIN_STEPS_PER_ROUND = 6
+SERVE_ARCH = "mamba2-1.3b"
+# (B, L, H, G, Dh, N, lc): tests/test_kernels.py's SSD sweep, then the
+# serve shape (4 prompts of 1000 tokens padded to 1024, Mamba2-1.3B heads)
+SSD_CASES = [(1, 16, 1, 1, 8, 8, 8), (2, 64, 4, 2, 16, 32, 16),
+             (1, 128, 2, 1, 32, 64, 64), (1, 256, 8, 2, 64, 128, 128)]
+SSD_SERVE = (4, 1024, 64, 1, 64, 128, 128)
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 64
+TIE_GAP = 1e-3       # a greedy token may differ where top-2 is this close
+LOGIT_ATOL = 2e-3    # the JAX package's prefill bar (test_arch_smoke.py)
 
 
 def fail(msg):
@@ -214,23 +249,69 @@ def profile_chunk(fleet, params, feats, topology, label, warm_chunks=8):
         state = eng._run_chunk(state, tb, ep, chunk=128, features=feats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    print(f"[p] {label}: chunk of 128 event steps after {warm_chunks * 128}"
+          f": wall {1e3 * wall / 128:.3f} ms per step (profiled)")
+    report_profile(prof, wall, 128, "step")
+
+
+def report_profile(prof, wall, steps, unit):
+    """Device busy time per `unit` and its share of the wall time (one
+    stream, so kernels do not overlap), kernel launches per unit and
+    the kernels with the most device time, from a torch.profiler run of
+    `steps` units that took `wall` seconds."""
+    import torch
+
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    launches = sum(e.count for e in rows)
-    print(f"[p] {label}: chunk of 128 event steps after {warm_chunks * 128}"
-          f": wall {1e3 * wall / 128:.3f} ms per step (profiled)")
     if not rows:
         print("[p] device time: not measured (the profiler saw no CUDA "
               "kernels)")
         return
-    print(f"[p] device busy {busy_us / 1e3 / 128:.3f} ms per step, share "
-          f"{busy_us / 1e6 / wall:.3f}; {launches / 128:.1f} kernel "
-          f"launches per step")
+    busy_us = sum(e.self_device_time_total for e in rows)
+    launches = sum(e.count for e in rows)
+    print(f"[p] device busy {busy_us / 1e3 / steps:.3f} ms per {unit}, "
+          f"share {busy_us / 1e6 / wall:.3f}; {launches / steps:.1f} kernel "
+          f"launches per {unit}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[p]   {e.self_device_time_total / 128:9.1f} us/step "
-              f"{e.count / 128:6.1f} x  {e.key[:90]}")
+        print(f"[p]   {e.self_device_time_total / steps:9.1f} us/{unit} "
+              f"{e.count / steps:6.1f} x  {e.key[:90]}")
+
+
+def profile_serve(sess, prompts, n_decode=16):
+    """(`--profile` only) Where the serve path's time goes: one profiled
+    prefill, then `n_decode` profiled decode steps, each with its wall
+    time, device busy share and top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    tokens = torch.as_tensor(prompts, device=sess.device)
+    with torch.inference_mode():
+        cache = lm.init_cache(sess.cfg, tokens.shape[0], device=sess.device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = sess.prefill_fn(tokens, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[p] serve prefill {tuple(tokens.shape)}: wall "
+              f"{1e3 * wall:.3f} ms (profiled)")
+        report_profile(prof, wall, 1, "prefill")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_decode):
+                logits, cache = sess.decode_fn(tok, cache)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[p] serve decode, {n_decode} steps: wall "
+              f"{1e3 * wall / n_decode:.3f} ms per token (profiled)")
+        report_profile(prof, wall, n_decode, "token")
 
 
 def drive(tag, sc, fleet):
@@ -346,6 +427,80 @@ def compare_ticks(tag, captured, exact_rates):
               f"plain versions (max abs rate diff "
               f"{max(err['tick_walk'], err['maxmin_rates']):.3g})")
     return grabbed, err
+
+
+def ssd_inputs(shape, dtype, seed, dev):
+    """The seeded inputs of `tests/test_kernels.py`'s SSD sweep."""
+    import numpy as np
+    import torch
+
+    B, L, H, G, Dh, N, _ = shape
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(B, L, H, Dh)),
+            rng.uniform(0.01, 0.3, size=(B, L, H)),
+            -rng.uniform(0.3, 2.0, size=H),
+            rng.normal(size=(B, L, G, N)), rng.normal(size=(B, L, G, N)))
+    return [torch.as_tensor(a, dtype=torch.float32 if i == 2 else dtype,
+                            device=dev) for i, a in enumerate(arrs)]
+
+
+def ssd_err(got, want, atol):
+    """(within the bar, max abs error): |got - want| <= atol + rtol |want|
+    with rtol 1e-3, plus one bf16 rounding step (2^-7 relative) for a
+    bf16 output, since both sides round their f32 sums to bf16."""
+    import torch
+
+    rtol = 1e-3 + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ok = bool((diff <= atol + rtol * w.abs()).all()) and bool(
+        torch.isfinite(g).all())
+    return ok, float(diff.max())
+
+
+def ssd_bound_ms(shape, elt):
+    """Bytes: x, dt, b, c read once (elt bytes each), a, y written once,
+    the f32 final state written once. Operations (multiply-adds): per
+    (batch, group, chunk) the causal half of c b^T (lc (lc + 1) / 2 x N),
+    which the heads of a group share, at the bf16 tensor-core rate when
+    b and c are bf16 (their products are exact there); per (batch, head,
+    chunk) the causal half of M x (x Dh), c S^T and the state update
+    (lc Dh N each), at the f32 rate since M, S and the state weights
+    are f32."""
+    B, L, H, G, Dh, N, lc = shape
+    nbytes = elt * (2 * B * L * H * Dh + B * L * H + 2 * B * L * G * N) \
+        + 4 * H + 4 * B * H * Dh * N
+    tri = lc * (lc + 1) // 2
+    gram = B * G * (L // lc) * tri * N
+    rest = B * H * (L // lc) * (tri * Dh + 2 * lc * Dh * N)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = 2 * gram / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) \
+        + 2 * rest / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def check_tokens(tag, got, want, gaps):
+    """Greedy tokens equal row by row, except that a row may part from
+    the reference at a step whose reference top-2 gap is under TIE_GAP
+    (its later tokens follow another history and are not compared).
+    Returns, per row, the step compared up to."""
+    upto = []
+    for r in range(want.shape[0]):
+        n = want.shape[1]
+        for i in range(n):
+            if int(got[r, i]) != int(want[r, i]):
+                print(f"[{tag}] row {r}: token {i} differs, reference "
+                      f"top-2 gap {gaps[r][i]:.3e}")
+                if gaps[r][i] >= TIE_GAP:
+                    fail(f"[{tag}] row {r}: greedy token {i} differs "
+                         f"where the top-2 gap is {gaps[r][i]:.3e}")
+                n = i
+                break
+        upto.append(n)
+        print(f"[{tag}] row {r}: tokens equal over {n} of "
+              f"{want.shape[1]} steps; least reference top-2 gap "
+              f"{min(gaps[r]):.3e}")
+    return upto
 
 
 def main():
@@ -467,10 +622,12 @@ def main():
     # ---- 7. the leaf-spine max-min main path ---------------------------
     lres, lcounts, lcaptured = drive(
         "7", Scenario(engine="torch", traces=fleet, topology=leaf), fleet)
-    for name, n in lcounts.items():
-        if n != lres.events:
-            fail(f"{name} launched {n} times for {lres.events} leaf-spine "
-                 f"event steps")
+    for name in ("contention", "tick_walk", "maxmin"):
+        if lcounts[name] != lres.events:
+            fail(f"{name} launched {lcounts[name]} times for {lres.events} "
+                 f"leaf-spine event steps")
+    if counts["ssd_scan"] or lcounts["ssd_scan"]:
+        fail("the SSD scan kernel ran on a fleet replay")
 
     # ---- 8. leaf-spine whole-path parity with the JAX package ----------
     lgold = json.loads(LEAF_GOLDEN.read_text())
@@ -522,9 +679,184 @@ def main():
           f"as measured; library: null (no single PyTorch call computes "
           f"max-min fair rates)")
 
-    both = {n: counts[n] + lcounts[n] for n in counts}
-    by_path = {n: {"bigswitch": counts[n], "leafspine": lcounts[n]}
-               for n in counts}
+    # ---- 10. K4 against its plain version ------------------------------
+    k4 = {}
+    for shape in SSD_CASES + [SSD_SERVE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(shape, dtype, shape[1] + shape[2], dev)
+            lc = shape[-1]
+            y, st = ops.ssd_scan(*args, lc=lc)
+            y_ref, st_ref = ops.ssd_scan(*args, lc=lc, force="ref")
+            torch.cuda.synchronize()
+            scale = (float(y_ref.float().abs().max())
+                     if shape == SSD_SERVE else 1.0)
+            ok_y, err_y = ssd_err(y, y_ref, 5e-4 * scale)
+            ok_s, err_s = ssd_err(st, st_ref, 5e-4)
+            ymax = float(y_ref.float().abs().max())
+            print(f"[10] K4 {shape} {str(dtype)[6:]}: max abs error y "
+                  f"{err_y:.3e} (max|y| {ymax:.3f}), state {err_s:.3e}")
+            if not (ok_y and ok_s) or y.dtype != dtype:
+                fail(f"K4 disagrees with ssd_chunked_ref at {shape} {dtype}")
+            if shape == SSD_SERVE:
+                k4[dtype] = dict(
+                    args=args, err=max(err_y, err_s),
+                    ms=cuda_ms(lambda: ops.ssd_scan(*args, lc=lc), 20),
+                    plain=cuda_ms(lambda: ops.ssd_scan(
+                        *args, lc=lc, force="ref"), 5),
+                    bound=ssd_bound_ms(shape, args[0].element_size()))
+            del args, y, y_ref
+    x, dt_, a, b, c = ssd_inputs((1, 64, 2, 1, 16, 32, 16),
+                                 torch.float32, 5, dev)
+    y_full, s_full = ops.ssd_scan(x, dt_, a, b, c, lc=16, force="ref")
+    y1, s1 = ops.ssd_scan(x[:, :32], dt_[:, :32], a, b[:, :32], c[:, :32],
+                          lc=16)
+    y2, s2 = ops.ssd_scan(x[:, 32:], dt_[:, 32:], a, b[:, 32:], c[:, 32:],
+                          init_state=s1, lc=16)
+    torch.cuda.synchronize()
+    if not (torch.allclose(torch.cat([y1, y2], 1), y_full, atol=1e-4,
+                           rtol=1e-3)
+            and torch.allclose(s2, s_full, atol=1e-4, rtol=1e-3)):
+        fail("K4's two chained halves differ from one plain scan")
+    print("[10] K4 two chained halves == one plain scan (atol 1e-4, "
+          "rtol 1e-3)")
+    for dtype, r in k4.items():
+        bnd, by = r["bound"]
+        print(f"[10] K4 at the serve shape {SSD_SERVE} {str(dtype)[6:]}: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}); library: null (no single PyTorch "
+              f"call computes the SSD scan)")
+
+    # ---- 11. full-width parity with the JAX package --------------------
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    mgold = json.loads(MAMBA_GOLDEN.read_text())
+    cfg2 = dataclasses.replace(get_config(SERVE_ARCH),
+                               num_layers=mgold["num_layers"],
+                               dtype="float32")
+    weights, meta = lm.numpy_params(cfg2, seed=mgold["weights_seed"])
+    n_gold = len(mgold["tokens"][0])
+    psess = ServeSession(
+        SERVE_ARCH, batch=len(mgold["prompts"]),
+        max_len=len(mgold["prompts"][0]) + n_gold,
+        model=lm.from_reference(weights, meta, cfg2, device=dev))
+    del weights
+    ops.reset_launches()
+    out = list(psess.stream(mgold["prompts"], n_gold))
+    if ops.launch_counts()["ssd_scan"] != cfg2.num_layers:
+        fail("the parity prefill did not run K4 once per layer")
+    logits = [lg.float() for _, lg in out]
+    toks = torch.stack([t for t, _ in out], 1)
+    with torch.inference_mode():
+        _, cache = psess.prefill_fn(
+            torch.as_tensor(mgold["prompts"], device=dev),
+            lm.init_cache(cfg2, len(mgold["prompts"]), device=dev))
+    idx = torch.as_tensor(mgold["top8_index"], device=dev)
+    top = logits[0].gather(1, idx)
+    want = torch.as_tensor(mgold["top8_value"], device=dev)
+    lerr = float((top - want).abs().max())
+    norms = [float(c["ssd"].double().norm()) for c in cache]
+    print(f"[11] Mamba2-1.3B full width, {cfg2.num_layers} layers, f32, "
+          f"2 x 300 tokens: top-8 logits max abs error {lerr:.3e} (bar "
+          f"{LOGIT_ATOL}); logits norm {logits[0].double().norm(dim=1).tolist()}"
+          f" vs "
+          f"JAX {mgold['logits_norm']}; SSD state norms {norms} vs JAX "
+          f"{mgold['ssd_state_norm']}")
+    if lerr > LOGIT_ATOL or not torch.isfinite(logits[0]).all():
+        fail("full-width prefill logits differ from the JAX package's")
+    if not np.allclose(norms, mgold["ssd_state_norm"], rtol=1e-4):
+        fail("full-width SSD states differ from the JAX package's")
+    check_tokens("11", toks.cpu(), torch.as_tensor(mgold["tokens"]),
+                 mgold["top2_gap"])
+    del psess, out, cache, logits
+
+    # ---- 12. the serve main path: Mamba2-1.3B, 48 layers, bf16 ---------
+    prompts = np.random.default_rng(1).integers(
+        0, get_config(SERVE_ARCH).vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    max_len = SERVE_PROMPT + SERVE_TOKENS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sess = ServeSession(SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
+                        max_len=max_len, device=dev, seed=0)
+    sess.generate(prompts, 2)                     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stream = sess.stream(prompts, SERVE_TOKENS)
+    first, first_logits = next(stream)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rest = [tok for tok, _ in stream]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scounts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    served = torch.stack([first] + rest, 1)
+    prefill_ms = 1e3 * (t1 - t0)
+    decode_ms = 1e3 * (t2 - t1) / (SERVE_TOKENS - 1)
+    tok_s = SERVE_BATCH * 1e3 / decode_ms
+    print(f"[12] ServeSession({SERVE_ARCH!r}, smoke=False): "
+          f"{sess.cfg.num_layers} layers, d_model {sess.cfg.d_model}, "
+          f"{sess.cfg.dtype}; {SERVE_BATCH} x {SERVE_PROMPT}-token prompts,"
+          f" {SERVE_TOKENS} greedy tokens: prefill {prefill_ms:.3f} ms, "
+          f"decode {decode_ms:.3f} ms per token ({tok_s:.1f} tokens/s),"
+          f" peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before, launches {scounts}; "
+          f"{smi()}")
+    if scounts["ssd_scan"] != sess.cfg.num_layers:
+        fail(f"K4 launched {scounts['ssd_scan']} times for one prefill of "
+             f"{sess.cfg.num_layers} Mamba layers")
+    if any(scounts[n] for n in scounts if n != "ssd_scan"):
+        fail("a scheduling kernel ran on the serve path")
+    if served.shape != (SERVE_BATCH, SERVE_TOKENS) or not (
+            (served >= 0) & (served < sess.cfg.vocab_size)).all() or not \
+            torch.isfinite(first_logits.float()).all():
+        fail("the serve path's tokens or logits are malformed")
+    if "--profile" in sys.argv[1:]:
+        profile_serve(sess, prompts)
+    del sess, stream, first_logits
+    runs = {}
+    torch.cuda.empty_cache()
+    m32 = ServeSession(SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
+                       max_len=max_len, device=dev, seed=0,
+                       dtype="float32").model
+    for force in ("ref", None):
+        s32 = ServeSession(SERVE_ARCH, batch=SERVE_BATCH, max_len=max_len,
+                           force=force, model=m32)
+        ops.reset_launches()
+        out = list(s32.stream(prompts, SERVE_TOKENS))
+        n4 = ops.launch_counts()["ssd_scan"]
+        if n4 != (0 if force else s32.cfg.num_layers):
+            fail(f"the f32 session (force={force}) launched K4 {n4} times")
+        runs[force] = ([lg for _, lg in out],
+                       torch.stack([t for t, _ in out], 1).cpu())
+        del s32, out
+    (ref_l, ref_t), (k4_l, k4_t) = runs["ref"], runs[None]
+    top2 = [lg.topk(2, dim=1).values for lg in ref_l]
+    gaps = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).tolist()
+    upto = check_tokens("12", k4_t, ref_t, gaps)
+    serr = 0.0
+    for i, (g, w) in enumerate(zip(k4_l, ref_l)):
+        rows = [r for r in range(SERVE_BATCH) if i <= upto[r]]
+        if rows:
+            serr = max(serr, float((g[rows] - w[rows]).abs().max()))
+    print(f"[12] f32 session, K4 vs plain SSD path: logits max abs error "
+          f"{serr:.3e} over the steps with equal histories (bar "
+          f"{LOGIT_ATOL})")
+    if serr > LOGIT_ATOL:
+        fail("the f32 session's logits through K4 differ from the plain "
+             "path's")
+    del runs, ref_l, k4_l, m32
+
+    paths = {"bigswitch": counts, "leafspine": lcounts, "serve": scounts}
+    both = {n: sum(p[n] for p in paths.values()) for n in counts}
+    by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
         {"name": "contention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/contention.cu",
@@ -549,6 +881,16 @@ def main():
          "max_abs_err": err["maxmin_rates"], "ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:73",
+         "launches": both["ssd_scan"],
+         "launches_by_path": by_path["ssd_scan"],
+         "max_abs_err": k4[torch.bfloat16]["err"],
+         "ms": k4[torch.bfloat16]["ms"],
+         "plain_ms": k4[torch.bfloat16]["plain"],
+         "bound_ms": k4[torch.bfloat16]["bound"][0],
+         "bound_by": k4[torch.bfloat16]["bound"][1], "library_ms": None},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

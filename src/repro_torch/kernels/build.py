@@ -35,6 +35,8 @@ SOURCES = {
     "walk": ("walk.cu", ["-fmad=false"]),
     # the max-min levels and residuals must round like the plain version
     "maxmin": ("maxmin.cu", ["-fmad=false"]),
+    # the SSD scan is held to a float tolerance, not bit for bit
+    "ssd_scan": ("ssd_scan.cu", []),
 }
 
 _loaded: dict = {}

@@ -15,9 +15,10 @@ import torch
 
 from repro_torch.kernels import contention as _contention
 from repro_torch.kernels import maxmin as _maxmin
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import walk as _walk
 from repro_torch.kernels.ref import (WalkFlows, contention_ref, maxmin_ref,
-                                     tick_walk_ref)
+                                     ssd_chunked_ref, tick_walk_ref)
 
 
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -59,18 +60,40 @@ def maxmin_rates(src, dst, cand, avail, *, up=None, dn=None,
                       num_links=num_links)
 
 
+def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
+             force: Optional[str] = None):
+    """Mamba-2 SSD chunked scan, any L: x (B, L, H, Dh), dt (B, L, H),
+    a (H,), b and c (B, L, G, N), init_state (B, H, Dh, N) or None ->
+    (y in x's dtype, final state f32); see `ref.ssd_chunked_ref`. On
+    CUDA, L is padded with zeros to a multiple of `lc` (dt = 0 in the
+    pad leaves the state unchanged), K4 runs, and y is sliced back."""
+    if not _use_kernel(x, force):
+        return ssd_chunked_ref(x, dt, a, b, c, init_state=init_state,
+                               lc=lc)
+    L = x.shape[1]
+    pad = (-L) % lc
+    if pad:
+        x, dt, b, c = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, b, c))
+    y, state = _ssd.ssd_scan_cuda(x, dt, a, b, c, init_state=init_state,
+                                  lc=lc)
+    return (y[:, :L] if pad else y), state
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last `reset_launches`, by kernel."""
     return {"contention": _contention.launches,
             "tick_walk": _walk.launches,
-            "maxmin": _maxmin.launches}
+            "maxmin": _maxmin.launches,
+            "ssd_scan": _ssd.launches}
 
 
 def reset_launches() -> None:
     _contention.launches = 0
     _walk.launches = 0
     _maxmin.launches = 0
+    _ssd.launches = 0
 
 
-__all__ = ["contention", "tick_walk", "maxmin_rates", "WalkFlows",
-           "launch_counts", "reset_launches"]
+__all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",
+           "WalkFlows", "launch_counts", "reset_launches"]

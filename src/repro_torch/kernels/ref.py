@@ -17,6 +17,12 @@ equal bit for bit; they are no yardstick of speed.
 * `maxmin_ref` is `repro.kernels.ref.maxmin_ref` (max-min fair rates by
   progressive filling) in index form with a leading batch axis: each
   flow names its rows instead of owning a one-hot column.
+* `ssd_ref` is `repro.kernels.ref.ssd_ref`, the Mamba-2 SSD sequential
+  recurrence (the oracle), and `ssd_chunked_ref` is
+  `repro.models.mamba.ssd_chunked_jnp`, the chunked SSD scan that the
+  SSD kernel (K4) computes, padding included. Unlike the other plain
+  versions these two do not repeat the kernel op for op: the kernel sums
+  in its own order, so they agree to a float tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -234,5 +240,92 @@ def maxmin_ref(src: torch.Tensor, dst: torch.Tensor, cand: torch.Tensor,
     return rates
 
 
+def _ssd_heads(b, c, H):
+    """b, c (B, L, G, N) -> per-head f32 (B, L, H, N): head h reads
+    group h // (H // G)."""
+    rep = H // b.shape[2]
+    return (b.repeat_interleave(rep, dim=2).to(torch.float32),
+            c.repeat_interleave(rep, dim=2).to(torch.float32))
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, *,
+            init_state: Optional[torch.Tensor] = None):
+    """Mamba-2 SSD, the sequential recurrence. x: (B, L, H, Dh); dt:
+    (B, L, H) step sizes (post-softplus); a: (H,) negative decay rates;
+    b, c: (B, L, G, N), heads grouped H // G per group; init_state:
+    (B, H, Dh, N). Per head h:
+
+        S_t = exp(dt_t a_h) S_{t-1} + dt_t x_t b_t^T,   y_t = S_t c_t
+
+    Returns (y in x's dtype, final state f32 (B, H, Dh, N))."""
+    B, L, H, Dh = x.shape
+    N = b.shape[3]
+    bh, ch = _ssd_heads(b, c, H)
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    af = a.to(torch.float32)
+    s = (init_state.to(torch.float32) if init_state is not None else
+         torch.zeros(B, H, Dh, N, dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(L):
+        decay = torch.exp(dtf[:, t] * af)[..., None, None]
+        s = decay * s + (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+                         * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhdn,bhn->bhd", s, ch[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros(B, 0, H, Dh)
+    return y.to(x.dtype), s
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, *,
+                    init_state: Optional[torch.Tensor] = None,
+                    lc: int = 128):
+    """The chunked SSD scan, the contract of `ssd_ref` for any L: L is
+    padded with zeros to a multiple of `lc` (dt = 0 in the pad leaves
+    the state unchanged) and sliced back. Per chunk, with cum the
+    inclusive cumsum of dt a over the chunk:
+
+        y   = (c b^T * exp(cum_t - cum_u) [u <= t] * dt_u) x
+              + exp(cum) (c S^T)
+        S' = exp(cum_L) S + (x * exp(cum_L - cum) dt)^T b
+
+    The decay's argument is masked to 0 above the diagonal before the
+    exp, so a large |a| dt cannot overflow into inf * 0 = NaN."""
+    B, L, H, Dh = x.shape
+    N = b.shape[3]
+    f32 = torch.float32
+    pad = (-L) % lc
+    xf = torch.nn.functional.pad(x.to(f32), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.to(f32), (0, 0, 0, pad))
+    bh, ch = _ssd_heads(b, c, H)
+    bh = torch.nn.functional.pad(bh, (0, 0, 0, 0, 0, pad))
+    ch = torch.nn.functional.pad(ch, (0, 0, 0, 0, 0, pad))
+    af = a.to(f32)
+    s = (init_state.to(f32) if init_state is not None else
+         torch.zeros(B, H, Dh, N, dtype=f32, device=x.device))
+    tri = torch.tril(torch.ones(lc, lc, dtype=torch.bool,
+                                device=x.device))[None, :, :, None]
+    ys = []
+    for j in range(0, L + pad, lc):
+        xc, dtc = xf[:, j:j + lc], dtf[:, j:j + lc]
+        bc, cc = bh[:, j:j + lc], ch[:, j:j + lc]
+        cum = torch.cumsum(dtc * af, dim=1)                  # (B, lc, H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B, t, u, H)
+        decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)),
+                            0.0)
+        g = torch.einsum("bthn,buhn->btuh", cc, bc)
+        m = g * decay * dtc[:, None, :, :]
+        y = torch.einsum("btuh,buhd->bthd", m, xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "bthn,bhdn->bthd", cc, s)
+        cl = cum[:, -1]                                      # (B, H)
+        wgt = torch.exp(cl[:, None] - cum) * dtc
+        s = torch.exp(cl)[..., None, None] * s + torch.einsum(
+            "bthd,bthn->bhdn", xc * wgt[..., None], bc)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :L] if ys else xf.new_zeros(B, 0, H, Dh)
+    return y.to(x.dtype), s
+
+
 __all__ = ["BIG", "WalkFlows", "contention_ref", "maxmin_ref",
-           "maxmin_rounds", "tick_walk_ref"]
+           "maxmin_rounds", "ssd_chunked_ref", "ssd_ref", "tick_walk_ref"]

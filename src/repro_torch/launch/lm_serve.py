@@ -1,0 +1,121 @@
+"""Serving driver of the port: batched prefill + greedy decode with the
+conv window and SSD state as the cache.
+
+The counterpart of `repro.launch.lm_serve`: a fixed batch of requests
+is prefilled at once (the prefill of every Mamba layer runs the SSD scan
+kernel K4 on the card), then greedy decode steps run until the asked
+number of tokens. Tokens stay on the device until the end (the
+reference pulls each one to the host).
+
+Usage (the smoke config, on the card; `--device cpu` runs the plain
+PyTorch path; `ServeSession(arch, smoke=False)` serves the published
+config):
+  python -m repro_torch.launch.lm_serve --arch mamba2-1.3b --requests 4 \
+      --tokens 16
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.fabric.engine import resolve_device
+from repro_torch.launch import steps as ST
+from repro_torch.models import lm
+
+
+class ServeSession:
+    """A model of `arch` (its reduced smoke config unless `smoke=False`)
+    with random weights from `seed`, serving batches of `batch` requests
+    of up to `max_len` tokens (prompt and continuation) on `device`
+    (default CUDA; raises without a card). `dtype` overrides the
+    config's compute dtype ("float32" or "bfloat16"); `force="ref"` runs
+    the SSD scan's plain version instead of the kernel (for holding one
+    against the other). `model` serves a prebuilt model of `arch` as it
+    is, e.g. `lm.from_reference(*lm.numpy_params(cfg, seed), cfg,
+    device=...)` for weights shared with the JAX package; `smoke`,
+    `seed`, `dtype` and `device` then do not apply: the session runs on
+    the model's device."""
+
+    def __init__(self, arch: str, *, smoke: bool = True, batch: int = 4,
+                 max_len: int = 128, device=None, seed: int = 0,
+                 dtype: Optional[str] = None, force: Optional[str] = None,
+                 model: Optional[lm.MambaLM] = None):
+        if model is None:
+            cfg = get_smoke_config(arch) if smoke else get_config(arch)
+            self.cfg = cfg if dtype is None else dataclasses.replace(
+                cfg, dtype=dtype)
+            self.device = resolve_device(device)
+            self.model = ST.materialize_model(self.cfg, seed, self.device)
+        else:
+            if model.cfg.name != arch:
+                raise ValueError(f"a {model.cfg.name} model for arch "
+                                 f"{arch!r}")
+            self.cfg, self.model = model.cfg, model
+            self.device = model.embed.device
+        self.batch = batch
+        self.max_len = max_len
+        self.prefill_fn = ST.make_prefill_step(self.model, force=force)
+        self.decode_fn = ST.make_decode_step(self.model)
+
+    @torch.inference_mode()
+    def stream(self, prompts, n_tokens: int):
+        """Greedy decoding of `prompts` (B, P) ints (array or tensor):
+        yields n_tokens pairs (token (B,) int64, the logits (B, V) it was
+        chosen from), both on the device; the first comes from the
+        prefill."""
+        tokens = torch.as_tensor(prompts, dtype=torch.int64,
+                                 device=self.device)
+        B, P = tokens.shape
+        if B != self.batch:
+            raise ValueError(f"{B} prompts for a batch of {self.batch}")
+        if P + n_tokens > self.max_len:
+            raise ValueError(f"{P} prompt + {n_tokens} new tokens exceed "
+                             f"max_len {self.max_len}")
+        cache = lm.init_cache(self.cfg, B, device=self.device)
+        logits, cache = self.prefill_fn(tokens, cache)
+        for i in range(n_tokens):
+            tok = logits[:, -1].argmax(-1)
+            yield tok, logits[:, -1]
+            if i + 1 < n_tokens:
+                logits, cache = self.decode_fn(tok[:, None], cache)
+
+    def generate(self, prompts, n_tokens: int) -> np.ndarray:
+        """prompts: (B, P) ints. Greedy-decodes n_tokens continuations;
+        returns them as a (B, n_tokens) int32 array."""
+        toks = [tok for tok, _ in self.stream(prompts, n_tokens)]
+        if not toks:
+            return np.zeros((self.batch, 0), np.int32)
+        return torch.stack(toks, 1).cpu().numpy().astype(np.int32)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args()
+    sess = ServeSession(args.arch, batch=args.requests, device=args.device,
+                        max_len=args.prompt_len + args.tokens)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, sess.cfg.vocab_size,
+                           (args.requests, args.prompt_len))
+    t0 = time.perf_counter()
+    toks = sess.generate(prompts, args.tokens)
+    dt = time.perf_counter() - t0
+    print(f"generated {toks.shape} tokens on {sess.device} in {dt:.2f}s "
+          f"({args.requests * args.tokens / dt:.1f} tok/s, first call "
+          f"included)")
+    print(toks[:, :12])
+
+
+if __name__ == "__main__":
+    main()

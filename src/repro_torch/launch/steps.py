@@ -1,0 +1,37 @@
+"""Serve steps of the port: build the model, prefill, decode.
+
+The counterpart of the serving part of `repro.launch.steps`
+(`materialize_model`, `make_prefill_step`, `make_decode_step`). There is
+no sharding and no `jit`: PyTorch runs the steps eagerly on one device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.fabric.engine import resolve_device
+from repro_torch.models import lm
+
+
+def materialize_model(cfg, seed: int = 0, device=None) -> lm.MambaLM:
+    """A randomly initialised model on `device` (default CUDA; raises
+    without a card), weights in the config's compute dtype."""
+    return lm.init_model(cfg, seed=seed, device=resolve_device(device))
+
+
+def make_prefill_step(model: lm.MambaLM, *, force: Optional[str] = None):
+    """prefill_step(tokens (B, S), cache) -> (last-token logits
+    (B, 1, V), cache). `force="ref"` runs the SSD scan's plain version
+    on any device (for holding the kernel against it)."""
+    def prefill_step(tokens, cache):
+        return lm.forward_prefill(model, tokens, cache, force=force)
+    return prefill_step
+
+
+def make_decode_step(model: lm.MambaLM):
+    """decode_step(tokens (B, 1), cache) -> (logits (B, 1, V), cache)."""
+    def decode_step(tokens, cache):
+        return lm.forward_decode(model, tokens, cache)
+    return decode_step
+
+
+__all__ = ["materialize_model", "make_prefill_step", "make_decode_step"]

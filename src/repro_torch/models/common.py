@@ -1,0 +1,65 @@
+"""Shared model machinery of the port: the reference's RMS norm and its
+parameter initialiser.
+
+The counterpart of `repro.models.common` for the parts the Mamba serve
+path runs. Sharding rules, RoPE and the FFNs stay out until a slice
+needs them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's `dtype` field."""
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; available: "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """The reference's RMS norm: f32 internals and a (1 + w) scale, so a
+    zero-initialised weight is the identity scale (not
+    `torch.nn.RMSNorm`, which scales by w). Returns x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * (1.0 + w.to(torch.float32))).to(x.dtype)
+
+
+class ParamInit:
+    """The reference `ParamFactory`'s scheme on a `torch.Generator`:
+    fan-in-scaled normal for dense weights, unit normal for the
+    embedding, zeros for norms and the SSM's `a_log`, `dt_bias` and
+    `d_skip`. Draws are f32 on the generator's device, then cast to
+    `dtype`; tensors are drawn in call order. The numbers differ from
+    `jax.random`'s for the same seed (compare through
+    `lm.numpy_params` + `lm.from_reference` instead)."""
+
+    def __init__(self, seed: int, device, dtype: torch.dtype):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _normal(self, shape, std: float) -> torch.Tensor:
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return (t * std).to(self.dtype)
+
+    def dense(self, shape, fan_in: int) -> torch.Tensor:
+        return self._normal(shape, 1.0 / math.sqrt(max(fan_in, 1)))
+
+    def embed(self, shape) -> torch.Tensor:
+        return self._normal(shape, 1.0)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+__all__ = ["ParamInit", "compute_dtype", "rms_norm"]

@@ -128,7 +128,8 @@ def test_scenario_hash_is_stable_and_discriminating():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.api, "
-            "repro_torch.fabric.engine, repro_torch.kernels.ops; "
+            "repro_torch.fabric.engine, repro_torch.kernels.ops, "
+            "repro_torch.launch.lm_serve, repro_torch.models.lm; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad")

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill)
-against their plain PyTorch versions, on the card. Every test here needs
-a CUDA device (marker `gpu`) and skips without one; run them on the card
-with
+"""The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
+K4 SSD scan) against their plain PyTorch versions, on the card, and a
+2-layer full-width Mamba2 serve with K4 against the plain path. Every
+test marked `gpu` needs a CUDA device and skips without one; run them
+on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
@@ -332,3 +333,116 @@ def test_leafspine_fleet_replay_on_card_matches_cpu(cuda):
     cpu = run(Scenario(traces=fleet, topology=topo, device="cpu"))
     assert gpu.events == cpu.events and gpu.ticks == cpu.ticks
     np.testing.assert_array_equal(gpu.cct, cpu.cct)
+
+
+# ---- K4, the SSD chunked scan, and the Mamba2 serve path ---------------
+
+SSD_SHAPES = [(1, 16, 1, 1, 8, 8, 8), (2, 64, 4, 2, 16, 32, 16),
+              (1, 128, 2, 1, 32, 64, 64), (1, 256, 8, 2, 64, 128, 128),
+              (2, 300, 8, 2, 64, 128, 128), (4, 1024, 64, 1, 64, 128, 128)]
+
+
+def ssd_inputs(B, L, H, G, Dh, N, *, seed, dtype, device):
+    """The seeded inputs of `tests/test_kernels.py`'s SSD sweep."""
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(B, L, H, Dh)),
+            rng.uniform(0.01, 0.3, size=(B, L, H)),
+            -rng.uniform(0.3, 2.0, size=H),
+            rng.normal(size=(B, L, G, N)), rng.normal(size=(B, L, G, N)))
+    return [torch.as_tensor(a, dtype=torch.float32 if i == 2 else dtype,
+                            device=device) for i, a in enumerate(arrs)]
+
+
+def assert_ssd_close(got, want, *, atol=5e-4):
+    """The reference's bar (atol 5e-4, rtol 1e-3); a bf16 output may be
+    one bf16 rounding step apart besides (at most 2^-7 relative), since
+    both sides round their f32 sums to bf16."""
+    rtol = 1e-3 + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,Dh,N,lc", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, B, L, H, G, Dh, N, lc, dtype):
+    """K4 against `ssd_chunked_ref` on the card; at the serve shape the
+    absolute bar scales with max|y|. L = 300 goes through the padding."""
+    args = ssd_inputs(B, L, H, G, Dh, N, seed=L + H, dtype=dtype,
+                      device=cuda)
+    before = ops.launch_counts()["ssd_scan"]
+    y, s = ops.ssd_scan(*args, lc=lc)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    y_ref, s_ref = ops.ssd_scan(*args, lc=lc, force="ref")
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    scale = float(y_ref.float().abs().max()) if B * L >= 4096 else 1.0
+    assert_ssd_close(y, y_ref, atol=5e-4 * scale)
+    assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_state_chaining(cuda):
+    x, dt, a, b, c = ssd_inputs(1, 64, 2, 1, 16, 32, seed=5,
+                                dtype=torch.float32, device=cuda)
+    y_full, s_full = ops.ssd_scan(x, dt, a, b, c, lc=16, force="ref")
+    y1, s1 = ops.ssd_scan(x[:, :32], dt[:, :32], a, b[:, :32], c[:, :32],
+                          lc=16)
+    y2, s2 = ops.ssd_scan(x[:, 32:], dt[:, 32:], a, b[:, 32:], c[:, 32:],
+                          init_state=s1, lc=16)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=1e-4,
+                               rtol=1e-3)
+    torch.testing.assert_close(s2, s_full, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_large_decay_is_finite(cuda):
+    """|a| dt up to 300 a step: the decay's masked argument never
+    overflows into inf * 0."""
+    x, dt, a, b, c = ssd_inputs(1, 128, 2, 1, 16, 32, seed=9,
+                                dtype=torch.float32, device=cuda)
+    y, s = ops.ssd_scan(x, dt * 20.0, a * 30.0, b, c, lc=64)
+    y_ref, s_ref = ops.ssd_scan(x, dt * 20.0, a * 30.0, b, c, lc=64,
+                                force="ref")
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert_ssd_close(y, y_ref)
+    assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+def test_two_layer_full_width_serve_kernel_vs_plain(cuda):
+    """Mamba2-1.3B at full width, 2 layers, f32, served by `ServeSession`
+    on one model: prefill and greedy decode with K4 against the plain SSD
+    path (logits to the JAX package's prefill bar 2e-3, tokens equal),
+    K4 once per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
+                              dtype="float32")
+    model = lm.init_model(cfg, seed=0, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 300))
+    runs = {}
+    for force in ("ref", None):
+        sess = ServeSession("mamba2-1.3b", batch=2, max_len=304,
+                            force=force, model=model)
+        ops.reset_launches()
+        runs[force] = list(sess.stream(prompts, 4))
+        assert ops.launch_counts()["ssd_scan"] == (
+            0 if force else cfg.num_layers)
+    for (tok, got), (want_tok, want) in zip(runs[None], runs["ref"]):
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+        assert torch.equal(tok, want_tok)
+
+
+def test_serve_session_without_card_raises(monkeypatch):
+    """`ServeSession()` runs on the card by default and raises where
+    there is none (here, or with CUDA hidden)."""
+    from repro_torch.launch.lm_serve import ServeSession
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeSession("mamba2-1.3b")
