@@ -8,11 +8,11 @@ a fleet of 16 FB-like traces (526 coflows, 150 ports each, the paper's
 full-width trace) through the Saath coordinator tick, first on the big
 switch, then on a 4:1 leaf-spine fabric with the max-min work-
 conservation fill; then through `repro_torch.launch.lm_serve.
-ServeSession` Mamba2-1.3B at its published width — and holds each
-hand-written CUDA kernel of those paths against its plain PyTorch
-version on the same inputs:
+ServeSession` Mamba2-1.3B and StarCoder2-3B at their published widths
+and depths — and holds each hand-written CUDA kernel of those paths
+against its plain PyTorch version on the same inputs:
 
-1. the card's name and power limit; build the four kernels with nvcc
+1. the card's name and power limit; build the five kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
    started together) and print nvcc's register and shared-memory
    report and the build time;
@@ -25,8 +25,9 @@ version on the same inputs:
    ...))`, with the kernels' launch counters set to 0 just before and
    read just after (K1 and K2 must equal the event steps); per-lane avg
    CCT, events, ticks, wall seconds and peak device memory; every real
-   coflow finished, every byte delivered. Tick inputs are captured on
-   the way (a spy on `tick_core` that clones its arguments);
+   coflow finished, every byte delivered; K3, K4 and K5 ran 0 times.
+   Tick inputs are captured on the way (a spy on `tick_core` that clones
+   its arguments);
 5. whole-path parity: lanes 0 and 1 within 1% of the JAX package's avg
    CCT on the same traces (`tests/data/torch_port_fb_golden.json`);
 6. on the heaviest captured ticks, the whole tick with the kernels
@@ -36,7 +37,8 @@ version on the same inputs:
    and (K1) one PyTorch call computing the same function;
 7. the leaf-spine main path: the same fleet under `LeafSpine(4, 4.0,
    "maxmin")` (38 leaves, 188 rows a side), counters as in 4 (K1, K2 and
-   K3 must each equal the event steps), the same checks and prints;
+   K3 must each equal the event steps; K4 and K5 0), the same checks
+   and prints;
 8. leaf-spine whole-path parity: lanes fb_like_trace(48, 150, seed=0/1)
    under that topology with the JAX package's event count and within 1%
    of its avg CCT (`tests/data/torch_port_leafspine_golden.json`);
@@ -51,30 +53,46 @@ version on the same inputs:
    at the reference's bar (atol 5e-4 scaled by max|y| at the serve
    shape, rtol 1e-3, one bf16 rounding step more for a bf16 y); K4's
    time at the serve shape beside the plain version's and the bound;
-11. full-width whole-path parity: Mamba2-1.3B at its published width,
-   2 layers, f32, weights from `numpy_params(cfg, seed=0)` served by
-   `ServeSession(model=...)`, 2 prompts of 300 tokens and 8 greedy
-   tokens through K4, against the JAX
-   package's numbers (`tests/data/torch_port_mamba2_golden.json`):
-   logits to atol 2e-3, tokens equal (a token may differ only where the
-   golden's top-2 gap is under 1e-3), per-layer SSD state norms (summed
-   in f64) to rtol 1e-4;
-12. the serve main path: `ServeSession("mamba2-1.3b", smoke=False)`, 48
-   layers in bf16, 4 prompts of 1000 tokens and 64 greedy tokens, with
-   the counters set to 0 just before and read just after (K4 = 48 per
-   prefill); prefill ms, decode ms per token, tokens/s, peak device
-   memory; then the same session in f32 with the plain SSD path and
-   with K4, held to phase 11's bar.
+11. full-width whole-path parity (`golden_parity`): Mamba2-1.3B at its
+   published width, 2 layers, f32, weights from `numpy_params(cfg,
+   seed=0)` served by `ServeSession(model=...)`, 2 prompts of 300 tokens
+   and 8 greedy tokens through K4 (once per layer, no other kernel),
+   against the JAX package's numbers
+   (`tests/data/torch_port_mamba2_golden.json`): top-8 logits to atol
+   2e-3, tokens equal (a token may differ only where the golden's top-2
+   gap is under 1e-3), per-layer SSD state norms (summed in f64) to rtol
+   1e-4;
+12. the Mamba2 serve main path (`serve_main_path`): `ServeSession(
+   "mamba2-1.3b", smoke=False)`, 48 layers in bf16, 4 prompts of 1000
+   tokens and 64 greedy tokens, with the counters set to 0 just before
+   and read just after (K4 = 48 per prefill, every other kernel 0);
+   prefill ms, decode ms per token, tokens/s, peak device memory; then
+   the same session in f32 with the plain SSD path and with K4, held to
+   phase 11's bar over the steps with equal histories;
+13. K5 (forward GQA attention) against `flash_attention_ref` on the
+   shapes of `tests/test_kernels.py`'s sweep, its chunked-prefill
+   offset and a ragged S against T > S, causal and not, and at the serve
+   shape (B 4, H 24, Hkv 2, S = T = 2000, D 128, causal), f32 and bf16,
+   at the reference's bars (atol 2e-6 f32, 2e-2 bf16); K5's time at the
+   serve shape beside the plain version's, one PyTorch call's
+   (`scaled_dot_product_attention`, timed here only) and the bound;
+14. as 11 for StarCoder2-3B through K5: full width, 2 layers, f32,
+   against `tests/data/torch_port_starcoder2_golden.json`, per-layer K
+   and V cache norms to rtol 1e-4;
+15. as 12 for the StarCoder2 serve main path: `ServeSession(
+   "starcoder2-3b", smoke=False)`, 30 layers in bf16, 4 prompts of 2000
+   tokens and 64 greedy tokens (K5 = 30 per prefill, every other kernel
+   0), then in f32 with the plain attention and with K5.
 
 Prints a `{"kernels": [...]}` line (`launches` = launches over the
-three main-path runs, split by path in `launches_by_path`), the nvidia-smi
-line, and as the last line `{"ok": true, "device": {...}}`. Any failed
-phase exits non-zero before the result lines. Exits non-zero without a
-CUDA device.
+four main-path runs, split by path in `launches_by_path`), the
+nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
+Any failed phase exits non-zero before the result lines. Exits non-zero
+without a CUDA device.
 
 `python3 chip_smoke.py --profile` adds one profiled chunk of each fleet
 path (`profile_chunk`) and one profiled prefill and 16 decode steps of
-the serve path (`profile_serve`): wall time per event step, prefill or
+each serve path (`profile_serve`): wall time per event step, prefill or
 token, device busy share, kernel launches and the kernels with the most
 device time.
 """
@@ -88,10 +106,14 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_fb_golden.json"
 LEAF_GOLDEN = ROOT / "tests" / "data" / "torch_port_leafspine_golden.json"
 MAMBA_GOLDEN = ROOT / "tests" / "data" / "torch_port_mamba2_golden.json"
+ATTN_GOLDEN = ROOT / "tests" / "data" / "torch_port_starcoder2_golden.json"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; used for 32-bit word ops too
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
+# the SFUs' exps: 16 a clock an SM (the CUDA programming guide's
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FLEET = 16
 COFLOWS, PORTS = 526, 150
 PARITY_COFLOWS = 48
@@ -106,6 +128,15 @@ SSD_CASES = [(1, 16, 1, 1, 8, 8, 8), (2, 64, 4, 2, 16, 32, 16),
              (1, 128, 2, 1, 32, 64, 64), (1, 256, 8, 2, 64, 128, 128)]
 SSD_SERVE = (4, 1024, 64, 1, 64, 128, 128)
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 64
+ATTN_ARCH = "starcoder2-3b"
+# (B, H, Hkv, S, T, D, q_offset): tests/test_kernels.py's attention sweep,
+# its chunked-prefill offset, a ragged S against T > S; then the serve
+# shape (4 prompts of 2000 tokens, StarCoder2-3B heads)
+FLASH_CASES = [(1, 1, 1, 16, 16, 32, 0), (2, 4, 2, 64, 64, 64, 0),
+               (1, 8, 1, 32, 32, 128, 0), (1, 2, 2, 40, 40, 64, 0),
+               (1, 2, 2, 32, 64, 32, 32), (2, 4, 2, 23, 40, 32, 17)]
+FLASH_SERVE = (4, 24, 2, 2000, 2000, 128, 0)
+ATTN_BATCH, ATTN_PROMPT, ATTN_TOKENS = 4, 2000, 64
 TIE_GAP = 1e-3       # a greedy token may differ where top-2 is this close
 LOGIT_ATOL = 2e-3    # the JAX package's prefill bar (test_arch_smoke.py)
 
@@ -288,8 +319,9 @@ def profile_serve(sess, prompts, n_decode=16):
     from repro_torch.models import lm
 
     tokens = torch.as_tensor(prompts, device=sess.device)
+    B, P = tokens.shape
     with torch.inference_mode():
-        cache = lm.init_cache(sess.cfg, tokens.shape[0], device=sess.device)
+        cache = lm.init_cache(sess.cfg, B, sess.max_len, device=sess.device)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -304,8 +336,8 @@ def profile_serve(sess, prompts, n_decode=16):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(n_decode):
-                logits, cache = sess.decode_fn(tok, cache)
+            for i in range(n_decode):
+                logits, cache = sess.decode_fn(tok, cache, P + i)
                 tok = logits[:, -1].argmax(-1)[:, None]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -479,6 +511,48 @@ def ssd_bound_ms(shape, elt):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def flash_inputs(shape, dtype, seed, dev):
+    """Seeded q (B, H, S, D), k and v (B, Hkv, T, D)."""
+    import numpy as np
+    import torch
+
+    B, H, Hkv, S, T, D, _ = shape
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=dev).to(dtype)
+            for s in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+
+
+def attention_bound_ms(shape, elt):
+    """Of causal attention at `shape`. Bytes: q and o once (B H S D
+    each), k and v once per KV head (B Hkv T D each), elt bytes an
+    element. Operations: 2 D multiply-adds (q . k and p v) for each
+    unmasked (query, key) pair, counted exactly: sum_i min(T, q_offset +
+    i + 1) pairs a (batch, head); at the bf16 tensor-core rate for bf16
+    inputs (the 2e-2 bar admits bf16 products), at the non-tensor f32
+    rate for f32 (TF32 fails the 2e-6 bar). Returns (ms, what bounds it,
+    pairs)."""
+    import numpy as np
+
+    B, H, Hkv, S, T, D, q_offset = shape
+    nbytes = elt * (2 * B * H * S * D + 2 * B * Hkv * T * D)
+    pairs = B * H * int(np.minimum(T, q_offset + np.arange(S) + 1).sum())
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = 2 * (2 * D * pairs) / (BF16_OPS_PER_S if elt == 2
+                                 else F32_OPS_PER_S)
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            pairs)
+
+
+def sdpa(q, k, v):
+    """One PyTorch call computing K5's function on (B, H, S, D) inputs
+    (the yardstick `library_ms`; the port never calls it)."""
+    import torch
+
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+
+
 def check_tokens(tag, got, want, gaps):
     """Greedy tokens equal row by row, except that a row may part from
     the reference at a step whose reference top-2 gap is under TIE_GAP
@@ -501,6 +575,168 @@ def check_tokens(tag, got, want, gaps):
               f"{want.shape[1]} steps; least reference top-2 gap "
               f"{min(gaps[r]):.3e}")
     return upto
+
+
+def golden_parity(tag, arch, path, kernel, norms):
+    """`arch` at its published width, depth cut to the golden's, f32,
+    weights from `numpy_params(cfg, seed)` served by
+    `ServeSession(model=...)`: its prefill launches `kernel` once per
+    layer and no other kernel; top-8 logits within LOGIT_ATOL of the
+    JAX package's numbers in the golden at `path`, tokens equal (the tie
+    rule of `check_tokens`), and the per-layer cache norms (summed in
+    f64) named by `norms` ({golden field: cache key}) to rtol 1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    gold = json.loads(path.read_text())
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=gold["num_layers"],
+                              dtype="float32")
+    weights, meta = lm.numpy_params(cfg, seed=gold["weights_seed"])
+    n_gold = len(gold["tokens"][0])
+    B, P = len(gold["prompts"]), len(gold["prompts"][0])
+    sess = ServeSession(arch, batch=B, max_len=P + n_gold,
+                        model=lm.from_reference(weights, meta, cfg,
+                                                device=dev))
+    del weights
+    ops.reset_launches()
+    out = list(sess.stream(gold["prompts"], n_gold))
+    counts = ops.launch_counts()
+    if counts[kernel] != cfg.num_layers or any(
+            counts[n] for n in counts if n != kernel):
+        fail(f"[{tag}] the parity run launched {counts}; expected {kernel} "
+             f"once per layer and no other kernel")
+    logits = [lg.float() for _, lg in out]
+    toks = torch.stack([t for t, _ in out], 1)
+    with torch.inference_mode():
+        _, cache = sess.prefill_fn(
+            torch.as_tensor(gold["prompts"], device=dev),
+            lm.init_cache(cfg, B, P, device=dev))
+    idx = torch.as_tensor(gold["top8_index"], device=dev)
+    top = logits[0].gather(1, idx)
+    want = torch.as_tensor(gold["top8_value"], device=dev)
+    lerr = float((top - want).abs().max())
+    got = {f: [float(c[key].double().norm()) for c in cache]
+           for f, key in norms.items()}
+    print(f"[{tag}] {arch} full width, {cfg.num_layers} layers, f32, {B} x "
+          f"{P} tokens: top-8 logits max abs error {lerr:.3e} (bar "
+          f"{LOGIT_ATOL}); logits norm "
+          f"{logits[0].double().norm(dim=1).tolist()} vs JAX "
+          f"{gold['logits_norm']}; " + "; ".join(
+              f"{f} {got[f]} vs JAX {gold[f]}" for f in norms))
+    if lerr > LOGIT_ATOL or not torch.isfinite(logits[0]).all():
+        fail(f"[{tag}] full-width prefill logits differ from the JAX "
+             f"package's")
+    for f in norms:
+        if not np.allclose(got[f], gold[f], rtol=1e-4):
+            fail(f"[{tag}] full-width {f} differ from the JAX package's")
+    check_tokens(tag, toks.cpu(), torch.as_tensor(gold["tokens"]),
+                 gold["top2_gap"])
+
+
+def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
+    """`ServeSession(arch, smoke=False)`, the published width and depth
+    in the config's dtype, `batch` prompts of `prompt_len` tokens (numpy
+    `default_rng(1)`) and `n_tokens` greedy tokens, with every launch
+    counter set to 0 just before and read just after: `kernel` once per
+    layer (in the prefill), every other kernel 0, finite logits. Prints
+    prefill ms, decode ms per token, tokens/s and peak device memory
+    (and, with `--profile`, `profile_serve`). Then the same session in
+    f32 with the plain prefill path and with the kernels, held to
+    LOGIT_ATOL over the steps with equal histories. Returns the launch
+    counts of the main-path run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.lm_serve import ServeSession
+
+    dev = torch.device("cuda")
+    prompts = np.random.default_rng(1).integers(
+        0, get_config(arch).vocab_size, (batch, prompt_len))
+    max_len = prompt_len + n_tokens
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sess = ServeSession(arch, smoke=False, batch=batch, max_len=max_len,
+                        device=dev, seed=0)
+    sess.generate(prompts, 2)                     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stream = sess.stream(prompts, n_tokens)
+    first = next(stream)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [first] + list(stream)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    served = torch.stack([tok for tok, _ in out], 1)
+    prefill_ms = 1e3 * (t1 - t0)
+    decode_ms = 1e3 * (t2 - t1) / (n_tokens - 1)
+    print(f"[{tag}] ServeSession({arch!r}, smoke=False): "
+          f"{sess.cfg.num_layers} layers, d_model {sess.cfg.d_model}, "
+          f"{sess.cfg.dtype}; {batch} x {prompt_len}-token prompts, "
+          f"{n_tokens} greedy tokens: prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per token ({batch * 1e3 / decode_ms:.1f} "
+          f"tokens/s), peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before, launches {counts}; {smi()}")
+    if counts[kernel] != sess.cfg.num_layers:
+        fail(f"[{tag}] {kernel} launched {counts[kernel]} times for one "
+             f"prefill of {sess.cfg.num_layers} layers")
+    if any(counts[n] for n in counts if n != kernel):
+        fail(f"[{tag}] another kernel than {kernel} ran on the {arch} serve "
+             f"path")
+    if served.shape != (batch, n_tokens) or not (
+            (served >= 0) & (served < sess.cfg.vocab_size)).all() or not \
+            all(torch.isfinite(lg.float()).all() for _, lg in out):
+        fail(f"[{tag}] the serve path's tokens or logits are malformed")
+    if "--profile" in sys.argv[1:]:
+        profile_serve(sess, prompts)
+    del sess, stream, first, out
+    runs = {}
+    torch.cuda.empty_cache()
+    m32 = ServeSession(arch, smoke=False, batch=batch, max_len=max_len,
+                       device=dev, seed=0, dtype="float32").model
+    for force in ("ref", None):
+        s32 = ServeSession(arch, batch=batch, max_len=max_len, force=force,
+                           model=m32)
+        ops.reset_launches()
+        res = list(s32.stream(prompts, n_tokens))
+        n = ops.launch_counts()[kernel]
+        if n != (0 if force else s32.cfg.num_layers):
+            fail(f"[{tag}] the f32 session (force={force}) launched "
+                 f"{kernel} {n} times")
+        runs[force] = ([lg for _, lg in res],
+                       torch.stack([t for t, _ in res], 1).cpu())
+        del s32, res
+    (ref_l, ref_t), (k_l, k_t) = runs["ref"], runs[None]
+    top2 = [lg.topk(2, dim=1).values for lg in ref_l]
+    gaps = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).tolist()
+    upto = check_tokens(tag, k_t, ref_t, gaps)
+    err = 0.0
+    for i, (g, w) in enumerate(zip(k_l, ref_l)):
+        rows = [r for r in range(batch) if i <= upto[r]]
+        if rows:
+            err = max(err, float((g[rows] - w[rows]).abs().max()))
+    print(f"[{tag}] f32 session, {kernel} vs its plain path: logits max abs "
+          f"error {err:.3e} over the steps with equal histories (bar "
+          f"{LOGIT_ATOL})")
+    if err > LOGIT_ATOL:
+        fail(f"[{tag}] the f32 session's logits through {kernel} differ "
+             f"from the plain path's")
+    return counts
 
 
 def main():
@@ -587,6 +823,8 @@ def main():
                  f"event steps")
     if counts["maxmin"]:
         fail("the max-min kernel ran on the big switch")
+    if counts["ssd_scan"] or counts["flash_attention"]:
+        fail("a model kernel ran on the big-switch fleet replay")
 
     # ---- 5. whole-path parity with the JAX package ---------------------
     gold = json.loads(GOLDEN.read_text())
@@ -626,8 +864,8 @@ def main():
         if lcounts[name] != lres.events:
             fail(f"{name} launched {lcounts[name]} times for {lres.events} "
                  f"leaf-spine event steps")
-    if counts["ssd_scan"] or lcounts["ssd_scan"]:
-        fail("the SSD scan kernel ran on a fleet replay")
+    if lcounts["ssd_scan"] or lcounts["flash_attention"]:
+        fail("a model kernel ran on the leaf-spine fleet replay")
 
     # ---- 8. leaf-spine whole-path parity with the JAX package ----------
     lgold = json.loads(LEAF_GOLDEN.read_text())
@@ -726,142 +964,69 @@ def main():
               f"{bnd:.4f} ms ({by}); library: null (no single PyTorch "
               f"call computes the SSD scan)")
 
-    # ---- 11. full-width parity with the JAX package --------------------
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch.lm_serve import ServeSession
-    from repro_torch.models import lm
-
-    mgold = json.loads(MAMBA_GOLDEN.read_text())
-    cfg2 = dataclasses.replace(get_config(SERVE_ARCH),
-                               num_layers=mgold["num_layers"],
-                               dtype="float32")
-    weights, meta = lm.numpy_params(cfg2, seed=mgold["weights_seed"])
-    n_gold = len(mgold["tokens"][0])
-    psess = ServeSession(
-        SERVE_ARCH, batch=len(mgold["prompts"]),
-        max_len=len(mgold["prompts"][0]) + n_gold,
-        model=lm.from_reference(weights, meta, cfg2, device=dev))
-    del weights
-    ops.reset_launches()
-    out = list(psess.stream(mgold["prompts"], n_gold))
-    if ops.launch_counts()["ssd_scan"] != cfg2.num_layers:
-        fail("the parity prefill did not run K4 once per layer")
-    logits = [lg.float() for _, lg in out]
-    toks = torch.stack([t for t, _ in out], 1)
-    with torch.inference_mode():
-        _, cache = psess.prefill_fn(
-            torch.as_tensor(mgold["prompts"], device=dev),
-            lm.init_cache(cfg2, len(mgold["prompts"]), device=dev))
-    idx = torch.as_tensor(mgold["top8_index"], device=dev)
-    top = logits[0].gather(1, idx)
-    want = torch.as_tensor(mgold["top8_value"], device=dev)
-    lerr = float((top - want).abs().max())
-    norms = [float(c["ssd"].double().norm()) for c in cache]
-    print(f"[11] Mamba2-1.3B full width, {cfg2.num_layers} layers, f32, "
-          f"2 x 300 tokens: top-8 logits max abs error {lerr:.3e} (bar "
-          f"{LOGIT_ATOL}); logits norm {logits[0].double().norm(dim=1).tolist()}"
-          f" vs "
-          f"JAX {mgold['logits_norm']}; SSD state norms {norms} vs JAX "
-          f"{mgold['ssd_state_norm']}")
-    if lerr > LOGIT_ATOL or not torch.isfinite(logits[0]).all():
-        fail("full-width prefill logits differ from the JAX package's")
-    if not np.allclose(norms, mgold["ssd_state_norm"], rtol=1e-4):
-        fail("full-width SSD states differ from the JAX package's")
-    check_tokens("11", toks.cpu(), torch.as_tensor(mgold["tokens"]),
-                 mgold["top2_gap"])
-    del psess, out, cache, logits
+    # ---- 11. Mamba2 full-width parity with the JAX package -------------
+    golden_parity("11", SERVE_ARCH, MAMBA_GOLDEN, "ssd_scan",
+                  {"ssd_state_norm": "ssd"})
 
     # ---- 12. the serve main path: Mamba2-1.3B, 48 layers, bf16 ---------
-    prompts = np.random.default_rng(1).integers(
-        0, get_config(SERVE_ARCH).vocab_size, (SERVE_BATCH, SERVE_PROMPT))
-    max_len = SERVE_PROMPT + SERVE_TOKENS
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    sess = ServeSession(SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
-                        max_len=max_len, device=dev, seed=0)
-    sess.generate(prompts, 2)                     # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    stream = sess.stream(prompts, SERVE_TOKENS)
-    first, first_logits = next(stream)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    rest = [tok for tok, _ in stream]
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    scounts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() - base
-    served = torch.stack([first] + rest, 1)
-    prefill_ms = 1e3 * (t1 - t0)
-    decode_ms = 1e3 * (t2 - t1) / (SERVE_TOKENS - 1)
-    tok_s = SERVE_BATCH * 1e3 / decode_ms
-    print(f"[12] ServeSession({SERVE_ARCH!r}, smoke=False): "
-          f"{sess.cfg.num_layers} layers, d_model {sess.cfg.d_model}, "
-          f"{sess.cfg.dtype}; {SERVE_BATCH} x {SERVE_PROMPT}-token prompts,"
-          f" {SERVE_TOKENS} greedy tokens: prefill {prefill_ms:.3f} ms, "
-          f"decode {decode_ms:.3f} ms per token ({tok_s:.1f} tokens/s),"
-          f" peak device memory {peak / 2**20:.1f} MiB above the "
-          f"{base / 2**20:.1f} MiB held before, launches {scounts}; "
-          f"{smi()}")
-    if scounts["ssd_scan"] != sess.cfg.num_layers:
-        fail(f"K4 launched {scounts['ssd_scan']} times for one prefill of "
-             f"{sess.cfg.num_layers} Mamba layers")
-    if any(scounts[n] for n in scounts if n != "ssd_scan"):
-        fail("a scheduling kernel ran on the serve path")
-    if served.shape != (SERVE_BATCH, SERVE_TOKENS) or not (
-            (served >= 0) & (served < sess.cfg.vocab_size)).all() or not \
-            torch.isfinite(first_logits.float()).all():
-        fail("the serve path's tokens or logits are malformed")
-    if "--profile" in sys.argv[1:]:
-        profile_serve(sess, prompts)
-    del sess, stream, first_logits
-    runs = {}
-    torch.cuda.empty_cache()
-    m32 = ServeSession(SERVE_ARCH, smoke=False, batch=SERVE_BATCH,
-                       max_len=max_len, device=dev, seed=0,
-                       dtype="float32").model
-    for force in ("ref", None):
-        s32 = ServeSession(SERVE_ARCH, batch=SERVE_BATCH, max_len=max_len,
-                           force=force, model=m32)
-        ops.reset_launches()
-        out = list(s32.stream(prompts, SERVE_TOKENS))
-        n4 = ops.launch_counts()["ssd_scan"]
-        if n4 != (0 if force else s32.cfg.num_layers):
-            fail(f"the f32 session (force={force}) launched K4 {n4} times")
-        runs[force] = ([lg for _, lg in out],
-                       torch.stack([t for t, _ in out], 1).cpu())
-        del s32, out
-    (ref_l, ref_t), (k4_l, k4_t) = runs["ref"], runs[None]
-    top2 = [lg.topk(2, dim=1).values for lg in ref_l]
-    gaps = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).tolist()
-    upto = check_tokens("12", k4_t, ref_t, gaps)
-    serr = 0.0
-    for i, (g, w) in enumerate(zip(k4_l, ref_l)):
-        rows = [r for r in range(SERVE_BATCH) if i <= upto[r]]
-        if rows:
-            serr = max(serr, float((g[rows] - w[rows]).abs().max()))
-    print(f"[12] f32 session, K4 vs plain SSD path: logits max abs error "
-          f"{serr:.3e} over the steps with equal histories (bar "
-          f"{LOGIT_ATOL})")
-    if serr > LOGIT_ATOL:
-        fail("the f32 session's logits through K4 differ from the plain "
-             "path's")
-    del runs, ref_l, k4_l, m32
+    scounts = serve_main_path("12", SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT,
+                              SERVE_TOKENS, "ssd_scan")
 
-    paths = {"bigswitch": counts, "leafspine": lcounts, "serve": scounts}
-    both = {n: sum(p[n] for p in paths.values()) for n in counts}
+    # ---- 13. K5 against its plain version ------------------------------
+    k5 = {}
+    for shape in FLASH_CASES + [FLASH_SERVE]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in ((True,) if shape == FLASH_SERVE
+                           else (True, False)):
+                q, k, v = flash_inputs(shape, dtype, shape[3] + shape[5],
+                                       dev)
+                off = shape[-1]
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          q_offset=off)
+                want = ops.flash_attention(q, k, v, causal=causal,
+                                           q_offset=off, force="ref")
+                torch.cuda.synchronize()
+                e = float((got.float() - want.float()).abs().max())
+                bar = 2e-6 if dtype == torch.float32 else 2e-2
+                print(f"[13] K5 {shape} {str(dtype)[6:]} causal={causal}: "
+                      f"max abs error {e:.3e} (bar {bar})")
+                if e > bar or got.dtype != dtype or not bool(
+                        torch.isfinite(got).all()):
+                    fail(f"K5 disagrees with flash_attention_ref at {shape} "
+                         f"{dtype} causal={causal}")
+            if shape == FLASH_SERVE:
+                bnd, by, pairs = attention_bound_ms(shape, q.element_size())
+                k5[dtype] = dict(
+                    err=e, bound=bnd, by=by, pairs=pairs,
+                    ms=cuda_ms(lambda: ops.flash_attention(q, k, v), 10),
+                    plain=cuda_ms(lambda: ops.flash_attention(
+                        q, k, v, force="ref"), 3),
+                    sdpa=cuda_ms(lambda: sdpa(q, k, v), 10))
+            del q, k, v, got, want
+    for dtype, r in k5.items():
+        print(f"[13] K5 at the serve shape {FLASH_SERVE} {str(dtype)[6:]}: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, SDPA "
+              f"{r['sdpa']:.4f} ms, bound {r['bound']:.4f} ms ({r['by']}; "
+              f"{r['pairs']} unmasked pairs; their exps at the SFU rate "
+              f"{1e3 * r['pairs'] / SFU_OPS_PER_S:.4f} ms)")
+
+    # ---- 14. StarCoder2 full-width parity with the JAX package ---------
+    golden_parity("14", ATTN_ARCH, ATTN_GOLDEN, "flash_attention",
+                  {"k_cache_norm": "k", "v_cache_norm": "v"})
+
+    # ---- 15. the serve main path: StarCoder2-3B, 30 layers, bf16 -------
+    acounts = serve_main_path("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT,
+                              ATTN_TOKENS, "flash_attention")
+
+    paths = {"bigswitch": counts, "leafspine": lcounts,
+             "mamba2_serve": scounts, "starcoder2_serve": acounts}
+    total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
         {"name": "contention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/contention.cu",
          "replaces": "src/repro/kernels/contention.py:51",
-         "launches": both["contention"],
+         "launches": total["contention"],
          "launches_by_path": by_path["contention"],
          "max_abs_err": err["contention"], "ms": k1_ms,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -869,7 +1034,7 @@ def main():
         {"name": "tick_walk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/walk.cu",
          "replaces": "src/repro/core/jax_coordinator.py:311",
-         "launches": both["tick_walk"],
+         "launches": total["tick_walk"],
          "launches_by_path": by_path["tick_walk"],
          "max_abs_err": err["tick_walk"], "ms": k2_ms,
          "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
@@ -877,20 +1042,31 @@ def main():
         {"name": "maxmin", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maxmin.cu",
          "replaces": "src/repro/kernels/maxmin.py:60",
-         "launches": both["maxmin"], "launches_by_path": by_path["maxmin"],
+         "launches": total["maxmin"], "launches_by_path": by_path["maxmin"],
          "max_abs_err": err["maxmin_rates"], "ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:73",
-         "launches": both["ssd_scan"],
+         "launches": total["ssd_scan"],
          "launches_by_path": by_path["ssd_scan"],
          "max_abs_err": k4[torch.bfloat16]["err"],
          "ms": k4[torch.bfloat16]["ms"],
          "plain_ms": k4[torch.bfloat16]["plain"],
          "bound_ms": k4[torch.bfloat16]["bound"][0],
          "bound_by": k4[torch.bfloat16]["bound"][1], "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:77",
+         "launches": total["flash_attention"],
+         "launches_by_path": by_path["flash_attention"],
+         "max_abs_err": k5[torch.bfloat16]["err"],
+         "ms": k5[torch.bfloat16]["ms"],
+         "plain_ms": k5[torch.bfloat16]["plain"],
+         "bound_ms": k5[torch.bfloat16]["bound"],
+         "bound_by": k5[torch.bfloat16]["by"],
+         "library_ms": k5[torch.bfloat16]["sdpa"]},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

@@ -135,18 +135,18 @@ class ModelConfig:
 # --arch id -> config module, for the architectures the port runs
 ARCH_IDS = {
     "mamba2-1.3b": "mamba2_1p3b",
+    "starcoder2-3b": "starcoder2_3b",
 }
 
 # the reference's other --arch ids -> (config module, the ROADMAP queue A
 # item that ports them)
-_ATTN = "11b (B3 through an attention model's serve path)"
+_DENSE = "11f (the catalog's other dense and encoder-decoder models)"
 NOT_PORTED = {
-    "starcoder2-3b": ("starcoder2_3b", _ATTN),
-    "gemma-7b": ("gemma_7b", _ATTN),
-    "deepseek-coder-33b": ("deepseek_coder_33b", _ATTN),
-    "deepseek-7b": ("deepseek_7b", _ATTN),
-    "chameleon-34b": ("chameleon_34b", _ATTN),
-    "seamless-m4t-medium": ("seamless_m4t_medium", _ATTN),
+    "gemma-7b": ("gemma_7b", _DENSE),
+    "deepseek-coder-33b": ("deepseek_coder_33b", _DENSE),
+    "deepseek-7b": ("deepseek_7b", _DENSE),
+    "chameleon-34b": ("chameleon_34b", _DENSE),
+    "seamless-m4t-medium": ("seamless_m4t_medium", _DENSE),
     "qwen3-moe-235b-a22b": ("qwen3_moe_235b", "11c (MoE)"),
     "deepseek-v2-236b": ("deepseek_v2_236b", "11c (MoE)"),
     "jamba-v0.1-52b": ("jamba_52b", "11d (the Mamba/attention hybrid)"),

@@ -37,6 +37,8 @@ SOURCES = {
     "maxmin": ("maxmin.cu", ["-fmad=false"]),
     # the SSD scan is held to a float tolerance, not bit for bit
     "ssd_scan": ("ssd_scan.cu", []),
+    # attention is held to a float tolerance too
+    "flash_attention": ("flash_attention.cu", []),
 }
 
 _loaded: dict = {}

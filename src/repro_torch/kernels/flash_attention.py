@@ -1,0 +1,107 @@
+"""Forward GQA flash attention as a hand-written CUDA kernel for Hopper
+(kernel K5).
+
+Replaces the Pallas kernel `repro/kernels/flash_attention.py:
+flash_attention_pallas`, the fast path of the online-softmax attention
+that the prefill of every attention layer runs
+(`repro/models/attention.py:181`, `jnp_flash`). One block per (batch,
+head, tile of 64 query rows) loops over the key tiles up to its causal
+limit with the rows' running max, sum and accumulator in registers;
+what bounds it on the card and how its design answers that are in the
+head note of `csrc/flash_attention.cu`.
+
+`flash_attention_cuda` launches it; `kernels.ops.flash_attention`
+dispatches CUDA tensors here and CPU tensors to
+`ref.flash_attention_ref`. `launches` counts the kernel's launches (one
+per call).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128)   # the head sizes the kernel is built for
+launches = 0
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = build.load("flash_attention")
+        lib.saath_flash_attention.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.saath_flash_attention.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _bhs_strides(t: torch.Tensor, name: str):
+    """The (batch, head, row) strides of a (B, H, S, D) tensor whose D
+    axis is contiguous (any order of the other three, e.g. a transposed
+    (B, S, H, D) tensor)."""
+    if t.stride(3) != 1 and t.shape[3] > 1:
+        raise ValueError(f"{name}: the head dimension must be contiguous, "
+                         f"strides {t.stride()}")
+    return t.stride()[:3]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Forward GQA attention on one CUDA device: q (B, H, S, D), k and v
+    (B, Hkv, T, D), all f32 or all bf16, each with its D axis contiguous
+    (strided views such as `x.transpose(1, 2)` of a (B, S, H, D) tensor
+    are read in place); H a multiple of Hkv, D in `HEAD_DIMS`,
+    q_offset >= 0. Returns o (B, H, S, D) in q's dtype, laid out like q
+    (so `o.transpose(1, 2)` of a transposed q is contiguous), the
+    contract of `ref.flash_attention_ref`."""
+    global launches
+    if q.dim() != 4 or not q.is_cuda:
+        raise ValueError("flash_attention_cuda needs q as a (B, H, S, D) "
+                         "CUDA tensor")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16, "
+                         f"not {q.dtype}")
+    B, H, S, D = q.shape
+    if k.dim() != 4:
+        raise ValueError("k and v must be (B, Hkv, T, D)")
+    Hkv, T = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS or Hkv == 0 or H % Hkv or q_offset < 0:
+        raise ValueError(f"flash_attention_cuda: D = {D} must be one of "
+                         f"{HEAD_DIMS}, H = {H} a multiple of Hkv = {Hkv}, "
+                         f"q_offset = {q_offset} >= 0")
+    for t, name, shape in ((k, "k", (B, Hkv, T, D)), (v, "v", (B, Hkv, T, D))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name}: expected {q.dtype} {shape} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(
+        *_bhs_strides(q, "q"), *_bhs_strides(k, "k"),
+        *_bhs_strides(v, "v"), *_bhs_strides(o, "o"))
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.saath_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+            Hkv, S, T, D, strides, 1.0 / (D ** 0.5), int(causal), q_offset,
+            int(q.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"attention kernel launch failed at (B, H, Hkv, "
+                           f"S, T, D) = {(B, H, Hkv, S, T, D)}: CUDA error "
+                           f"{err} (a shared-memory request above the "
+                           f"block's limit is error 1)")
+    launches += 1
+    return o
+
+
+__all__ = ["HEAD_DIMS", "flash_attention_cuda"]

@@ -14,10 +14,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import contention as _contention
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import maxmin as _maxmin
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import walk as _walk
-from repro_torch.kernels.ref import (WalkFlows, contention_ref, maxmin_ref,
+from repro_torch.kernels.ref import (WalkFlows, contention_ref,
+                                     flash_attention_ref, maxmin_ref,
                                      ssd_chunked_ref, tick_walk_ref)
 
 
@@ -80,12 +82,28 @@ def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
     return (y[:, :L] if pad else y), state
 
 
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    force: Optional[str] = None):
+    """Forward GQA attention: q (B, H, S, D), k and v (B, Hkv, T, D) ->
+    o (B, H, S, D) in q's dtype; the causal mask is aligned top-left,
+    query i at absolute position q_offset + i (>= 0). See
+    `ref.flash_attention_ref` for the contract; on CUDA the kernel K5
+    reads strided views in place and lays o out like q."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, not {q_offset}")
+    if _use_kernel(q, force):
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+    return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last `reset_launches`, by kernel."""
     return {"contention": _contention.launches,
             "tick_walk": _walk.launches,
             "maxmin": _maxmin.launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "flash_attention": _flash.launches}
 
 
 def reset_launches() -> None:
@@ -93,7 +111,9 @@ def reset_launches() -> None:
     _walk.launches = 0
     _maxmin.launches = 0
     _ssd.launches = 0
+    _flash.launches = 0
 
 
 __all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",
-           "WalkFlows", "launch_counts", "reset_launches"]
+           "flash_attention", "WalkFlows", "launch_counts",
+           "reset_launches"]

@@ -23,6 +23,14 @@ equal bit for bit; they are no yardstick of speed.
   SSD kernel (K4) computes, padding included. Unlike the other plain
   versions these two do not repeat the kernel op for op: the kernel sums
   in its own order, so they agree to a float tolerance, not bit for bit.
+* `attention_ref` is `repro.kernels.ref.attention_ref` (GQA attention
+  with a materialized softmax, causal mask aligned bottom-right), and
+  `flash_attention_ref` is the online-softmax form of
+  `repro.models.attention.jnp_flash` under the contract of the Pallas
+  kernel `flash_attention_pallas` (causal mask aligned top-left and
+  shifted by `q_offset`, scale on the f32 scores), which the attention
+  kernel (K5) computes. The two agree where S == T or q_offset == T - S.
+  Like the SSD versions they agree with the kernel to a float tolerance.
 """
 from __future__ import annotations
 
@@ -327,5 +335,67 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), s
 
 
-__all__ = ["BIG", "WalkFlows", "contention_ref", "maxmin_ref",
+NEG_INF = -1e30   # the masked score of the attention kernels
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """(B, H, S, D) x (B, Hkv, T, D) GQA attention, materialized f32
+    softmax; query head h reads KV head h // (H // Hkv). The causal mask
+    is aligned bottom-right (query i sees keys j <= i + T - S). Returns
+    (B, H, S, D) in q's dtype."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(f32)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg,
+                          k.to(f32)) * (1.0 / D ** 0.5)
+    if causal:
+        mask = torch.ones(S, T, dtype=torch.bool,
+                          device=q.device).tril(T - S)
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(f32))
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_offset: int = 0,
+                        block: int = 1024) -> torch.Tensor:
+    """Forward GQA attention by online softmax over key blocks of
+    `block`: q (B, H, S, D), k and v (B, Hkv, T, D), H a multiple of
+    Hkv, query head h reading KV head h // (H // Hkv) (K and V are never
+    repeated). In f32: s = q k^T D^-1/2; keys at or past T and, under
+    `causal`, keys after q_offset + i (query i's absolute position) are
+    set to -1e30; the running max m, sum l and accumulator; o = acc /
+    max(l, 1e-30). Returns (B, H, S, D) in q's dtype."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(f32)
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    m = torch.full((B, Hkv, H // Hkv, S), NEG_INF, dtype=f32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, Hkv, H // Hkv, S, D, dtype=f32, device=q.device)
+    for j in range(0, T, block):
+        kb, vb = k[:, :, j:j + block].to(f32), v[:, :, j:j + block].to(f32)
+        s = torch.einsum("bhgsd,bhtd->bhgst", qg, kb) * scale
+        if causal:
+            k_pos = j + torch.arange(kb.shape[2], device=q.device)
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgst,bhtd->bhgsd",
+                                                    p, vb)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+__all__ = ["BIG", "NEG_INF", "WalkFlows", "attention_ref",
+           "contention_ref", "flash_attention_ref", "maxmin_ref",
            "maxmin_rounds", "ssd_chunked_ref", "ssd_ref", "tick_walk_ref"]

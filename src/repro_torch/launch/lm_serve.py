@@ -1,17 +1,20 @@
-"""Serving driver of the port: batched prefill + greedy decode with the
-conv window and SSD state as the cache.
+"""Serving driver of the port: batched prefill + greedy decode with a
+KV cache (attention layers) or the conv window and SSD state (Mamba
+layers) as the cache.
 
 The counterpart of `repro.launch.lm_serve`: a fixed batch of requests
-is prefilled at once (the prefill of every Mamba layer runs the SSD scan
-kernel K4 on the card), then greedy decode steps run until the asked
-number of tokens. Tokens stay on the device until the end (the
-reference pulls each one to the host).
+is prefilled at once (on the card the prefill of every Mamba layer runs
+the SSD scan kernel K4, of every attention layer the attention kernel
+K5), then greedy decode steps run until the asked number of tokens,
+position by position after the prompt. Tokens stay on the device until
+the end (the reference pulls each one to the host).
 
 Usage (the smoke config, on the card; `--device cpu` runs the plain
 PyTorch path; `ServeSession(arch, smoke=False)` serves the published
 config):
-  python -m repro_torch.launch.lm_serve --arch mamba2-1.3b --requests 4 \
+  python -m repro_torch.launch.lm_serve --arch starcoder2-3b --requests 4 \
       --tokens 16
+  python -m repro_torch.launch.lm_serve --arch mamba2-1.3b
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ class ServeSession:
     of up to `max_len` tokens (prompt and continuation) on `device`
     (default CUDA; raises without a card). `dtype` overrides the
     config's compute dtype ("float32" or "bfloat16"); `force="ref"` runs
-    the SSD scan's plain version instead of the kernel (for holding one
-    against the other). `model` serves a prebuilt model of `arch` as it
+    the prefill kernels' plain versions instead of the kernels (for
+    holding one against the other). `model` serves a prebuilt model of `arch` as it
     is, e.g. `lm.from_reference(*lm.numpy_params(cfg, seed), cfg,
     device=...)` for weights shared with the JAX package; `smoke`,
     `seed`, `dtype` and `device` then do not apply: the session runs on
@@ -45,7 +48,7 @@ class ServeSession:
     def __init__(self, arch: str, *, smoke: bool = True, batch: int = 4,
                  max_len: int = 128, device=None, seed: int = 0,
                  dtype: Optional[str] = None, force: Optional[str] = None,
-                 model: Optional[lm.MambaLM] = None):
+                 model: Optional[lm.DecoderLM] = None):
         if model is None:
             cfg = get_smoke_config(arch) if smoke else get_config(arch)
             self.cfg = cfg if dtype is None else dataclasses.replace(
@@ -77,13 +80,13 @@ class ServeSession:
         if P + n_tokens > self.max_len:
             raise ValueError(f"{P} prompt + {n_tokens} new tokens exceed "
                              f"max_len {self.max_len}")
-        cache = lm.init_cache(self.cfg, B, device=self.device)
+        cache = lm.init_cache(self.cfg, B, self.max_len, device=self.device)
         logits, cache = self.prefill_fn(tokens, cache)
         for i in range(n_tokens):
             tok = logits[:, -1].argmax(-1)
             yield tok, logits[:, -1]
             if i + 1 < n_tokens:
-                logits, cache = self.decode_fn(tok[:, None], cache)
+                logits, cache = self.decode_fn(tok[:, None], cache, P + i)
 
     def generate(self, prompts, n_tokens: int) -> np.ndarray:
         """prompts: (B, P) ints. Greedy-decodes n_tokens continuations;

@@ -1,15 +1,16 @@
-"""Shared model machinery of the port: the reference's RMS norm and its
-parameter initialiser.
+"""Shared model machinery of the port: the reference's RMS norm, RoPE,
+activations, plain-MLP FFN and parameter initialiser.
 
-The counterpart of `repro.models.common` for the parts the Mamba serve
-path runs. Sharding rules, RoPE and the FFNs stay out until a slice
-needs them.
+The counterpart of `repro.models.common` for the parts the Mamba2 and
+StarCoder2 serve paths run. Sharding rules and the gated FFN
+(`glu_ffn`) stay out until a slice needs them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -31,6 +32,44 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)
             * (1.0 + w.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split: x (..., S, H, D), positions
+    broadcastable to (..., S). Angles and products in f32, the result
+    in x's dtype (the reference's `rope`)."""
+    half = x.shape[-1] // 2
+    freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].to(torch.float32) * freq   # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# the reference's activations by name; its "gelu" is the tanh
+# approximation (`jax.nn.gelu(approximate=True)`), not PyTorch's default
+# erf form
+ACTIVATIONS = {"silu": F.silu, "relu": F.relu,
+               "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def activation(name: str):
+    """The activation `name` of `ACTIVATIONS`."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; available: "
+                         f"{sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
+
+
+def mlp_ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+            act: str) -> torch.Tensor:
+    """Plain 2-matrix FFN: act(x W_i) W_o (StarCoder2, Seamless)."""
+    return activation(act)(x @ wi) @ wo
 
 
 class ParamInit:
@@ -62,4 +101,5 @@ class ParamInit:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
 
-__all__ = ["ParamInit", "compute_dtype", "rms_norm"]
+__all__ = ["ACTIVATIONS", "ParamInit", "activation", "compute_dtype",
+           "mlp_ffn", "rms_norm", "rope"]

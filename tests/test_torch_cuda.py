@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
-K4 SSD scan) against their plain PyTorch versions, on the card, and a
-2-layer full-width Mamba2 serve with K4 against the plain path. Every
+K4 SSD scan, K5 attention) against their plain PyTorch versions, on the
+card, a 2-layer full-width Mamba2 serve with K4 against the plain path,
+and a 2-layer full-width StarCoder2 serve through K5 against the JAX
+package's golden. Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
 
@@ -446,3 +448,141 @@ def test_serve_session_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeSession("mamba2-1.3b")
+
+
+# ---- K5, the attention kernel, and the StarCoder2 serve path -----------
+
+# (B, H, Hkv, S, T, D, q_offset): tests/test_kernels.py's sweep, its
+# chunked-prefill offset, a ragged S against T > S, the smoke head size,
+# and the serve shape (4 prompts of 2000 tokens, StarCoder2-3B heads)
+FLASH_SHAPES = [(1, 1, 1, 16, 16, 32, 0), (2, 4, 2, 64, 64, 64, 0),
+                (1, 8, 1, 32, 32, 128, 0), (1, 2, 2, 40, 40, 64, 0),
+                (1, 2, 2, 32, 64, 32, 32), (2, 4, 2, 23, 40, 32, 17),
+                (2, 4, 2, 100, 100, 16, 0), (4, 24, 2, 2000, 2000, 128, 0)]
+FLASH_ATOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+
+
+def flash_inputs(B, H, Hkv, S, T, D, *, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                            device=device).to(dtype)
+            for shape in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,q_offset", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, S, T, D,
+                                              q_offset, dtype, causal):
+    """K5 against `flash_attention_ref` on the card at the reference's
+    bars (atol 2e-6 f32, 2e-2 bf16), one launch per call."""
+    q, k, v = flash_inputs(B, H, Hkv, S, T, D, seed=S + D, dtype=dtype,
+                           device=cuda)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               force="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, S, D)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """(B, S, H, D) tensors passed as transposed views, K and V as slices
+    of a longer cache: the same result as contiguous copies, and o laid
+    out like q (its transpose back is contiguous)."""
+    B, S, H, Hkv, D = 2, 70, 6, 2, 64
+    rng = np.random.default_rng(0)
+    qs = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32),
+                         device=cuda)
+    cache = torch.as_tensor(rng.normal(size=(2, B, 96, Hkv, D)).astype(
+        np.float32), device=cuda)
+    q = qs.transpose(1, 2)
+    k, v = (c[:, :S].transpose(1, 2) for c in cache)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = flash_inputs(1, 2, 1, 8, 8, 48, seed=0,
+                           dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="D = 48"):
+        ops.flash_attention(q, k, v)
+    q, k, v = flash_inputs(1, 2, 1, 8, 8, 32, seed=0,
+                           dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="k: expected"):
+        ops.flash_attention(q, k.bfloat16(), v)
+
+
+@pytest.mark.gpu
+def test_starcoder2_serve_launches_k5_once_per_layer_prefill(cuda):
+    """The smoke StarCoder2 session on the card: one K5 launch per layer
+    in the prefill, none in decode, and the plain path's tokens."""
+    from repro_torch.launch.lm_serve import ServeSession
+
+    runs = {}
+    prompts = np.random.default_rng(3).integers(0, 256, (4, 40))
+    for force in ("ref", None):
+        sess = ServeSession("starcoder2-3b", device=cuda, dtype="float32",
+                            force=force)
+        ops.reset_launches()
+        out = list(sess.stream(prompts, 6))
+        assert ops.launch_counts()["flash_attention"] == (
+            0 if force else sess.cfg.num_layers)
+        runs[force] = out
+    for (tok, got), (want_tok, want) in zip(runs[None], runs["ref"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert torch.equal(tok, want_tok)
+
+
+@pytest.mark.gpu
+def test_two_layer_full_width_starcoder2_matches_golden(cuda):
+    """StarCoder2-3B at full width, 2 layers, f32, weights from
+    `numpy_params(cfg, seed=0)`, served by `ServeSession(model=...)`
+    through K5 against the JAX package's numbers
+    (`tests/data/torch_port_starcoder2_golden.json`): top-8 logits to
+    2e-3, tokens equal, per-layer K and V cache norms (summed in f64) to
+    rtol 1e-4."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    gold = json.loads((Path(__file__).parent / "data" /
+                       "torch_port_starcoder2_golden.json").read_text())
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              num_layers=gold["num_layers"],
+                              dtype="float32")
+    model = lm.from_reference(*lm.numpy_params(cfg, gold["weights_seed"]),
+                              cfg, device=cuda)
+    prompts = torch.as_tensor(gold["prompts"], device=cuda)
+    n = len(gold["tokens"][0])
+    sess = ServeSession("starcoder2-3b", batch=prompts.shape[0],
+                        max_len=prompts.shape[1] + n, model=model)
+    ops.reset_launches()
+    out = list(sess.stream(prompts, n))
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    top = out[0][1].gather(1, torch.as_tensor(gold["top8_index"],
+                                              device=cuda))
+    torch.testing.assert_close(
+        top, torch.as_tensor(gold["top8_value"], device=cuda), atol=2e-3,
+        rtol=0)
+    assert torch.stack([t for t, _ in out], 1).tolist() == gold["tokens"]
+    with torch.inference_mode():
+        _, cache = sess.prefill_fn(prompts, lm.init_cache(
+            cfg, prompts.shape[0], prompts.shape[1], device=cuda))
+    for key in ("k", "v"):
+        np.testing.assert_allclose(
+            [float(c[key].double().norm()) for c in cache],
+            gold[f"{key}_cache_norm"], rtol=1e-4)
