@@ -69,20 +69,31 @@ against its plain PyTorch version on the same inputs:
    prefill ms, decode ms per token, tokens/s, peak device memory; then
    the same session in f32 with the plain SSD path and with K4, held to
    phase 11's bar over the steps with equal histories;
-13. K5 (forward GQA attention) against `flash_attention_ref` on the
-   shapes of `tests/test_kernels.py`'s sweep, its chunked-prefill
-   offset and a ragged S against T > S, causal and not, and at the serve
-   shape (B 4, H 24, Hkv 2, S = T = 2000, D 128, causal), f32 and bf16,
-   at the reference's bars (atol 2e-6 f32, 2e-2 bf16); K5's time at the
-   serve shape beside the plain version's, one PyTorch call's
-   (`scaled_dot_product_attention`, timed here only) and the bound;
+13. K5 (forward GQA attention; the f32 instance on the CUDA cores, the
+   bf16 one on wgmma tensor cores fed by a TMA ring) against
+   `flash_attention_ref` on the shapes of `tests/test_kernels.py`'s
+   sweep, its chunked-prefill offset, a ragged S against T > S, and at
+   D = 128 StarCoder2's G = 12 with S = T = 300 and a chunk at q_offset
+   250 against T = 400, causal and not, and at the serve shape (B 4, H
+   24, Hkv 2, S = T = 2000, D 128, causal), f32 and bf16, at the
+   reference's bars (atol 2e-6 f32, 2e-2 bf16); K5's time at the serve
+   shape beside the plain version's, one PyTorch call's
+   (`scaled_dot_product_attention`, timed here only) and the bound, and
+   for bf16 its TFLOP/s, its share of the bound and its ratio to SDPA's
+   time in the same run (printed, never a failure: speed is read, not
+   gated);
 14. as 11 for StarCoder2-3B through K5: full width, 2 layers, f32,
    against `tests/data/torch_port_starcoder2_golden.json`, per-layer K
    and V cache norms to rtol 1e-4;
 15. as 12 for the StarCoder2 serve main path: `ServeSession(
    "starcoder2-3b", smoke=False)`, 30 layers in bf16, 4 prompts of 2000
    tokens and 64 greedy tokens (K5 = 30 per prefill, every other kernel
-   0), then in f32 with the plain attention and with K5.
+   0) and its first-step logit gap to the plain attention in bf16
+   (printed); then in f32 with the plain attention and with K5; then a
+   bf16 pair (`bf16_pair`): StarCoder2-3B at full width, 2 layers, bf16,
+   weights from `numpy_params(cfg, seed=0)`, a prefill of 4 x 2000
+   tokens and 8 teacher-forced decode steps with the plain attention
+   and with K5, logits to atol 0.1 (the bf16 bar of ROADMAP C5).
 
 Prints a `{"kernels": [...]}` line (`launches` = launches over the
 four main-path runs, split by path in `launches_by_path`), the
@@ -130,15 +141,19 @@ SSD_SERVE = (4, 1024, 64, 1, 64, 128, 128)
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1000, 64
 ATTN_ARCH = "starcoder2-3b"
 # (B, H, Hkv, S, T, D, q_offset): tests/test_kernels.py's attention sweep,
-# its chunked-prefill offset, a ragged S against T > S; then the serve
-# shape (4 prompts of 2000 tokens, StarCoder2-3B heads)
+# its chunked-prefill offset, a ragged S against T > S, at D = 128 G = 12
+# with S and T no multiple of 128 and a chunk against T > S; then the
+# serve shape (4 prompts of 2000 tokens, StarCoder2-3B heads)
 FLASH_CASES = [(1, 1, 1, 16, 16, 32, 0), (2, 4, 2, 64, 64, 64, 0),
                (1, 8, 1, 32, 32, 128, 0), (1, 2, 2, 40, 40, 64, 0),
-               (1, 2, 2, 32, 64, 32, 32), (2, 4, 2, 23, 40, 32, 17)]
+               (1, 2, 2, 32, 64, 32, 32), (2, 4, 2, 23, 40, 32, 17),
+               (1, 24, 2, 300, 300, 128, 0), (2, 8, 2, 150, 400, 128, 250)]
 FLASH_SERVE = (4, 24, 2, 2000, 2000, 128, 0)
 ATTN_BATCH, ATTN_PROMPT, ATTN_TOKENS = 4, 2000, 64
 TIE_GAP = 1e-3       # a greedy token may differ where top-2 is this close
 LOGIT_ATOL = 2e-3    # the JAX package's prefill bar (test_arch_smoke.py)
+BF16_LOGIT_ATOL = 0.1  # the bf16 logit bar (ROADMAP C5)
+PAIR_STEPS = 8       # teacher-forced decode steps of the bf16 pair
 
 
 def fail(msg):
@@ -648,8 +663,9 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
     `default_rng(1)`) and `n_tokens` greedy tokens, with every launch
     counter set to 0 just before and read just after: `kernel` once per
     layer (in the prefill), every other kernel 0, finite logits. Prints
-    prefill ms, decode ms per token, tokens/s and peak device memory
-    (and, with `--profile`, `profile_serve`). Then the same session in
+    prefill ms, decode ms per token, tokens/s and peak device memory,
+    the first step's logit gap to the plain path in the same dtype (and,
+    with `--profile`, `profile_serve`). Then the same session in
     f32 with the plain prefill path and with the kernels, held to
     LOGIT_ATOL over the steps with equal histories. Returns the launch
     counts of the main-path run."""
@@ -702,6 +718,14 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
             (served >= 0) & (served < sess.cfg.vocab_size)).all() or not \
             all(torch.isfinite(lg.float()).all() for _, lg in out):
         fail(f"[{tag}] the serve path's tokens or logits are malformed")
+    plain = ServeSession(arch, batch=batch, max_len=max_len, force="ref",
+                         model=sess.model)
+    _, plain_first = next(plain.stream(prompts, 1))
+    gap = float((first[1].float() - plain_first.float()).abs().max())
+    print(f"[{tag}] {sess.cfg.dtype} session, first step: {kernel} vs its "
+          f"plain path: logits max abs gap {gap:.3e} over "
+          f"{sess.cfg.num_layers} layers (printed, no bar)")
+    del plain, plain_first
     if "--profile" in sys.argv[1:]:
         profile_serve(sess, prompts)
     del sess, stream, first, out
@@ -737,6 +761,62 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
         fail(f"[{tag}] the f32 session's logits through {kernel} differ "
              f"from the plain path's")
     return counts
+
+
+def bf16_pair(tag, arch, batch, prompt_len, kernel):
+    """`arch` at its published width, 2 layers, in the config's bf16,
+    weights from `numpy_params(cfg, seed=0)`: a prefill of `batch`
+    prompts of `prompt_len` tokens (numpy `default_rng(1)`) and
+    PAIR_STEPS teacher-forced decode steps (the same next tokens for
+    both), once with the plain prefill path and once with the kernels;
+    `kernel` runs once per layer in the second and never in the first,
+    and every step's logits agree to BF16_LOGIT_ATOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    model = lm.from_reference(*lm.numpy_params(cfg, seed=0), cfg,
+                              device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, prompt_len + PAIR_STEPS)), device=dev)
+    runs = {}
+    for force in ("ref", None):
+        ops.reset_launches()
+        with torch.inference_mode():
+            cache = lm.init_cache(cfg, batch, prompt_len + PAIR_STEPS,
+                                  device=dev)
+            lg, cache = lm.forward_prefill(model, tokens[:, :prompt_len],
+                                           cache, force=force)
+            out = [lg[:, -1].float()]
+            for i in range(PAIR_STEPS):
+                pos = prompt_len + i
+                lg, cache = lm.forward_decode(model, tokens[:, pos:pos + 1],
+                                              cache, pos)
+                out.append(lg[:, -1].float())
+        n = ops.launch_counts()[kernel]
+        if n != (0 if force else cfg.num_layers):
+            fail(f"[{tag}] the bf16 pair (force={force}) launched {kernel} "
+                 f"{n} times")
+        runs[force] = out
+        del cache
+    errs = [float((g - w).abs().max())
+            for g, w in zip(runs[None], runs["ref"])]
+    finite = all(bool(torch.isfinite(g).all()) for g in runs[None])
+    print(f"[{tag}] bf16 pair: {arch} full width, {cfg.num_layers} layers, "
+          f"{cfg.dtype}, {batch} x {prompt_len} tokens + {PAIR_STEPS} "
+          f"teacher-forced steps, {kernel} vs its plain path: logits max "
+          f"abs error {errs[0]:.3e} after the prefill, {max(errs[1:]):.3e} "
+          f"over the decode steps (bar {BF16_LOGIT_ATOL})")
+    if max(errs) > BF16_LOGIT_ATOL or not finite:
+        fail(f"[{tag}] the bf16 logits through {kernel} differ from the "
+             f"plain path's")
 
 
 def main():
@@ -1009,6 +1089,12 @@ def main():
               f"{r['sdpa']:.4f} ms, bound {r['bound']:.4f} ms ({r['by']}; "
               f"{r['pairs']} unmasked pairs; their exps at the SFU rate "
               f"{1e3 * r['pairs'] / SFU_OPS_PER_S:.4f} ms)")
+    r = k5[torch.bfloat16]
+    flop = 2 * 2 * FLASH_SERVE[5] * r["pairs"]
+    print(f"[13] K5 bf16 at the serve shape: {flop / r['ms'] / 1e9:.1f} "
+          f"TFLOP/s ({flop / 1e9:.2f} GFLOP of unmasked pairs), "
+          f"{r['bound'] / r['ms']:.1%} of the bound, {r['ms'] / r['sdpa']:.3f}"
+          f" x SDPA's time in this run; {smi()}")
 
     # ---- 14. StarCoder2 full-width parity with the JAX package ---------
     golden_parity("14", ATTN_ARCH, ATTN_GOLDEN, "flash_attention",
@@ -1017,6 +1103,7 @@ def main():
     # ---- 15. the serve main path: StarCoder2-3B, 30 layers, bf16 -------
     acounts = serve_main_path("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT,
                               ATTN_TOKENS, "flash_attention")
+    bf16_pair("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT, "flash_attention")
 
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts}

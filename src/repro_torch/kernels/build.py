@@ -8,9 +8,10 @@ seconds), for Hopper only:
          -Xcompiler -fPIC [extra flags] -o build/kernels/lib<name>_<hash>.so
 
 into `build/kernels/` at the repository root, at first use. The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and never mixed up with an old library. `build_all` starts one
-nvcc per source at once and waits for all of them. A failed build
+name carries a hash of the source, the headers under `csrc/` (`*.cuh`)
+and the flags, so an edited source or header is rebuilt and never mixed
+up with an old library. `build_all` starts one nvcc per source at once
+and waits for all of them. A failed build
 raises with nvcc's output; nothing falls back to the plain versions.
 """
 from __future__ import annotations
@@ -72,6 +73,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src, flags = SOURCES[name]
     h = hashlib.sha256((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH + BASE_FLAGS + flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

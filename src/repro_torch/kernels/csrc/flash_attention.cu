@@ -5,54 +5,96 @@
 // chunked online-softmax attention that the prefill of every attention
 // layer runs (repro/models/attention.py:181, jnp_flash). For query head h
 // (KV head h / G, G = H / Hkv; K and V are never repeated), query row i
-// at absolute position q_offset + i and key j, all in f32:
+// at absolute position q_offset + i and key j:
 //
-//     s_ij = (q_i . k_j) D^-1/2, set to -1e30 where j >= T or, under
-//            causal, j > q_offset + i
+//     s_ij = (q_i . k_j) D^-1/2, masked where j >= T or, under causal,
+//            j > q_offset + i
 //     m = running max, l = running sum of exp(s - m), acc = running
 //     sum of exp(s - m) v; o_i = acc / max(l, 1e-30) in q's type.
 //
 // Inputs q (B, H, S, D), k and v (B, Hkv, T, D) and the output o
 // (B, H, S, D), each given by its (batch, head, row) strides with the
-// D axis contiguous, so (B, S, H, D) tensors pass as transposed views
-// without a copy; f32 or bf16 (all four of one type); D in {16, 32, 64,
-// 128}.
-//
-// Design (simple and right first). The Pallas grid carried m, l and acc
-// in VMEM scratch across its sequential key axis; Hopper blocks run in
-// no order and carry nothing, so one block of 256 threads takes one
-// (batch, head, tile of BQ = 64 query rows) and loops over the key tiles
-// of BK = 64 itself, stopping at the causal limit of its last row (the
-// Pallas grid's `run` skip, as a loop bound). The query tile sits in
-// shared memory transposed (D x BQ) for the whole loop; each key tile is
-// staged transposed (D x BK) and each value tile as it is (BK x D), all
-// as f32. Thread (ty, tx) of the 16 x 16 grid owns query rows 4ty..4ty+3:
-// it computes their scores against keys 4tx..4tx+3 from two float4
-// reads per step of d (16 multiply-adds), the row max and sum by
-// shuffles over the 16 threads of its half-warp, and keeps the rows' m,
-// l and a (4, D / 16) slice of acc in registers. The probabilities go
-// back to shared memory (BK x BQ, over the key tile, which is no longer
-// read) for acc += P V, one float4 of P and D / 64 float4 of V per key.
-// At D = 128 a block takes 101.6 KB of shared memory (above 48 KB, so
-// the launcher raises the block's dynamic limit), two blocks an SM. The
-// heaviest query tiles (last under causal) are launched first. Every
-// product is f32 on the CUDA cores: no TF32, no tensor cores, no TMA.
+// D axis contiguous, so (B, S, H, D) tensors and slices of a longer KV
+// cache pass as views without a copy; f32 or bf16 (all four of one
+// type); D in {16, 32, 64, 128}. Two designs, one for each type.
 //
 // Bound on this card: at the serve shape (B 4, H 24, Hkv 2, S = T =
 // 2000, D 128, causal) the function needs 2 D multiply-adds for each of
 // the 192 M unmasked (query, key) pairs, 98 GFLOP: 1.47 ms at the f32
-// rate of 67 TFLOP/s, 0.10 ms at the bf16 tensor-core rate; its bytes
-// (q and o once, k and v once per KV head, 106 MB in bf16) take
+// rate of 67 TFLOP/s, 0.099 ms at the bf16 tensor-core rate of 989; its
+// bytes (q and o once, k and v once per KV head, 106 MB in bf16) take
 // 0.032 ms at 3.35 TB/s. Its exps (one a pair) run on the SFUs at 16 a
-// clock an SM (~4.2 T/s): 0.046 ms, no bound, but half of the bf16
-// product time, which is why fast Hopper kernels overlap them with
-// wgmma. This kernel
-// is bound by its f32 multiply-adds and the shared-memory reads that
-// feed them; bf16 wgmma tiles, TMA and warp specialisation are later
-// work.
+// clock an SM (~4.2 T/s): 0.046 ms, half of the bf16 product time.
+//
+// f32 (flash_fwd<float, D>, the port's first design; the 2e-6 bar rules
+// out TF32, so the products stay on the CUDA cores): one block of 256
+// threads takes one (batch, head, tile of BQ = 64 query rows) and loops
+// over the key tiles of BK = 64 itself, stopping at the causal limit of
+// its last row (the Pallas grid's `run` skip, as a loop bound). The
+// query tile sits in shared memory transposed (D x BQ) for the whole
+// loop; each key tile is staged transposed (D x BK) and each value tile
+// as it is (BK x D). Thread (ty, tx) of the 16 x 16 grid owns query rows
+// 4ty..4ty+3: it computes their scores against keys 4tx..4tx+3 from two
+// float4 reads per step of d, the row max and sum by shuffles over its
+// half-warp, and keeps the rows' m, l and a (4, D / 16) slice of acc in
+// registers; the probabilities go back to shared memory (over the key
+// tile) for acc += P V. 101.6 KB of shared memory at D = 128, two
+// blocks an SM. Bound by its f32 multiply-adds and the shared-memory
+// reads that feed them.
+//
+// bf16 (hopper::flash_fwd_sm90<D>; the 2e-2 bar admits bf16 products
+// with f32 sums): both products run on the tensor cores (wgmma), which
+// bound it, with the exps overlapped under them.
+//   - Block: 3 warpgroups. Warpgroup 0 is the producer: it gives up
+//     registers (setmaxnreg 24) and one thread issues every TMA load.
+//     Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 query rows
+//     each, so a block takes BQ = 128 rows of one (batch, head). The
+//     grid is one block per (tile, head, batch), the heaviest causal
+//     tiles first over all heads.
+//   - TMA: 4-D tensor maps (D, rows, heads, batch) built on the host
+//     from the tensors' own strides and extents (S for q, T for k and
+//     v, never a cache's length), rows past the extent read as zero.
+//     A box is at most 128 bytes wide under the 128B swizzle, so a tile
+//     of 128 rows lies in shared memory as D / 64 column blocks of 64
+//     columns at D = 128 (one block, swizzled 128B / 64B / 32B, at D =
+//     64 / 32 / 16). Q is loaded once; K and V tiles of BK = 128 keys
+//     go through a ring of 2 stages each, every stage with a "full"
+//     mbarrier (expect-tx bytes) and an "empty" one (one arrival per
+//     consumer warp). TMA needs a 16-byte-aligned base and strides
+//     that are multiples of 16 bytes; the wrapper raises on any other
+//     view. 160 KB of shared memory at D = 128, one block an SM.
+//   - S = Q K^T: wgmma m64n128k16, both operands K-major in shared
+//     memory, D / 16 k-steps (32 bytes along a swizzled row, then the
+//     next column block).
+//   - Online softmax on the f32 accumulator fragment, in registers: the
+//     row max over the 4 threads of a row (2 shuffles), D^-1/2 log2 e
+//     folded into one multiply-add before ex2, l summed per thread from
+//     the f32 p and across the row once at the end; only the key tiles
+//     that cross T or the causal limit are masked, and the key loop
+//     stops at the causal limit of the block's last row.
+//   - O += P V: P rounded to bf16 in registers is the A operand of
+//     wgmma m64n{D}k16 (the accumulator fragment is the A fragment's
+//     layout), so it never touches shared memory; V is the B operand,
+//     MN-major (transposed), its column blocks one leading offset apart.
+//   - Overlap, both ways: within a consumer, S_j = Q K_j^T and O +=
+//     P_{j-1} V_{j-1} are issued together, the exps of S_j run while
+//     the second product is in flight, and O is rescaled once it has
+//     landed; across the two consumers, named barriers make them take
+//     turns to issue (ping-pong), so one's exps run under the other's
+//     products. K stages are released as soon as S_j has landed, V
+//     stages after their product.
+//   - Epilogue: o = O / max(l, 1e-30) in bf16 to the strided output,
+//     rows >= S masked.
+//   Rounding against the Pallas contract: _flash_kernel forms P V with P
+//   and V in f32; here P is rounded to bf16 (ROADMAP C8).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -65,16 +107,9 @@ constexpr int KT = BK + TP;     // row length of Kt (D rows)
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 // floats of shared memory: Qt (D x QT), the key tile Kt (D x KT) shared
@@ -273,12 +308,362 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+// ---- the bf16 instance: wgmma tensor cores fed by a TMA ring ------------
+
+namespace hopper {
+
+using namespace sm90;
+
+constexpr int BQ = 128;          // query rows per block, 64 per consumer
+constexpr int BK = 128;          // keys per tile
+constexpr int STAGES = 2;        // K and V tiles in flight, each
+constexpr int THREADS = 384;     // a producer and two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+
+// shared-memory geometry at head size D: a tile of 128 rows is stored as
+// NB column blocks of INNER columns (one TMA box each), rows of ROWB
+// bytes, swizzled over ROWB (the widest swizzle a box can take)
+template <int D>
+struct Geo {
+  static constexpr int INNER = D < 64 ? D : 64;
+  static constexpr int ROWB = 2 * INNER;               // 32, 64 or 128
+  static constexpr int NB = D / INNER;                  // 2 at D = 128
+  static constexpr int BLOCK = 128 * ROWB;              // bytes a column block
+  static constexpr int TILE = NB * BLOCK;               // bytes a tile
+  static constexpr uint32_t SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  // Q, then the K ring, then the V ring; 9 barriers after them
+  static constexpr int BAR_OFF = (1 + 2 * STAGES) * TILE;
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 9 * 8;  // + alignment slack
+};
+
+// S = Q K^T for one consumer's 64 rows: D / 16 k-steps, both operands
+// K-major; a k-step moves 32 bytes along a swizzled row, then to the
+// next column block
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[64], uint32_t sq, uint32_t sk) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / (G::INNER / 16)) * G::BLOCK +
+                         (kk % (G::INNER / 16)) * 32;
+    wgmma_ss_n128(s, desc(sq + off, 16, 8 * G::ROWB, G::SWZ),
+                  desc(sk + off, 16, 8 * G::ROWB, G::SWZ), kk > 0);
+  }
+}
+
+// O += P V: 8 k-steps of 16 keys, P from registers, V MN-major (16 key
+// rows a step; its column blocks LBO apart)
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[8][4],
+                                   uint32_t sv) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<D>(o, p[kk],
+                desc(sv + kk * 16 * G::ROWB, G::BLOCK, 8 * G::ROWB, G::SWZ),
+                1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ o, long long osb, long long osh,
+               long long oss, int B, int H, int G, int S, int Tk,
+               int q_tiles, float scale_log2, int causal, int q_offset) {
+  using Geo_ = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + Geo_::TILE,
+                 sV = base + (1 + STAGES) * Geo_::TILE;
+  const uint32_t bar_q = base + Geo_::BAR_OFF;
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * STAGES,
+                 empty_k = full_v + 8 * STAGES,
+                 empty_v = empty_k + 8 * STAGES;
+
+  // heaviest causal query tiles first, over every (batch, head)
+  const int id = blockIdx.x, bh = B * H;
+  const int q0 = (q_tiles - 1 - id / bh) * BQ;
+  const int h = id % H, b = (id % bh) / H;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int kend = causal ? min(Tk, q_offset + q_last + 1) : Tk;
+  const int n = (kend + BK - 1) / BK;     // key tiles of this block
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, CONSUMER_WARPS);
+      mbar_init(empty_v + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread issues every TMA load -------------------
+    setmaxnreg_dec<24>();
+    if (tid == 0 && n > 0) {
+      const int hk = h / G;
+      mbar_expect_tx(bar_q, Geo_::TILE);
+      for (int c = 0; c < Geo_::NB; ++c)
+        tma_load_4d(sQ + c * Geo_::BLOCK, &tq, bar_q, c * Geo_::INNER, q0, h,
+                    b);
+      for (int j = 0; j < n; ++j) {
+        const int s = j % STAGES;
+        const uint32_t parity = ((j / STAGES) - 1) & 1;
+        if (j >= STAGES) mbar_wait(empty_k + 8 * s, parity);
+        mbar_expect_tx(full_k + 8 * s, Geo_::TILE);
+        for (int c = 0; c < Geo_::NB; ++c)
+          tma_load_4d(sK + s * Geo_::TILE + c * Geo_::BLOCK, &tk,
+                      full_k + 8 * s, c * Geo_::INNER, j * BK, hk, b);
+        if (j >= STAGES) mbar_wait(empty_v + 8 * s, parity);
+        mbar_expect_tx(full_v + 8 * s, Geo_::TILE);
+        for (int c = 0; c < Geo_::NB; ++c)
+          tma_load_4d(sV + s * Geo_::TILE + c * Geo_::BLOCK, &tv,
+                      full_v + 8 * s, c * Geo_::INNER, j * BK, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ---------------------------------
+    setmaxnreg_inc<240>();
+    const int cw = tid / 128 - 1;             // 0 or 1
+    const int t = tid % 128, lane = t % 32;
+    const int r0 = (t / 32) * 16 + lane / 4;  // rows r0 and r0 + 8 of 64
+    const int row0 = q0 + 64 * cw + r0;       // query row in the sequence
+    const uint32_t sq = sQ + 64 * cw * Geo_::ROWB;
+    const bool leader = lane == 0;            // arrives for its warp
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    uint32_t p[8][4];
+
+    // s <- exp2((s - m_new) D^-1/2 log2 e) for key tile j, with the
+    // running max m updated and l rescaled and summed from the f32 p;
+    // returns each row's rescale factor of the accumulator
+    auto softmax = [&](int j, float (&alpha)[2]) {
+      const int k0 = j * BK;
+      if (k0 + BK > Tk || (causal && k0 + BK - 1 > q_offset + q0 + 64 * cw)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          const int qpos = q_offset + row0 + 8 * ((i / 2) % 2);
+          if (kpos >= Tk || (causal && kpos > qpos)) s[i] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if ((i / 2) % 2 == r) mx = fmaxf(mx, s[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mu = mx == -INFINITY ? 0.f : mx;
+        alpha[r] = ex2((m[r] - mu) * scale_log2);
+        m[r] = mx;
+        const float neg = -mu * scale_log2;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if ((i / 2) % 2 == r) {
+            s[i] = ex2(fmaf(s[i], scale_log2, neg));
+            sum += s[i];
+          }
+        l[r] = l[r] * alpha[r] + sum;
+      }
+    };
+    auto to_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    };
+
+    // ping-pong: the two consumers take turns to issue their products
+    // (named barrier 1 + cw is consumer cw's turn), so that one's exps
+    // run under the other's products; consumer 1 first hands the first
+    // turn to consumer 0, and each issues n + 1 times
+    auto turn_wait = [&]() { bar_sync(1 + cw, 256); };
+    auto turn_pass = [&]() { bar_arrive(2 - cw, 256); };
+    if (n > 0) {
+      float alpha[2];
+      if (cw == 1) bar_arrive(1, 256);
+      mbar_wait(bar_q, 0);
+      mbar_wait(full_k, 0);
+      turn_wait();
+      wgmma_fence();
+      qk<D>(s, sq, sK);
+      wgmma_commit();
+      turn_pass();
+      wgmma_wait<0>();
+      fence_operand(s);
+      if (leader) mbar_arrive(empty_k);
+      softmax(0, alpha);
+      to_p();
+      for (int j = 1; j < n; ++j) {
+        const int st = j % STAGES, sp = (j - 1) % STAGES;
+        // S_j = Q K_j^T and O += P_{j-1} V_{j-1} in flight together;
+        // the exps of S_j run under the second product
+        mbar_wait(full_k + 8 * st, (j / STAGES) & 1);
+        fence_operand(acc);
+        turn_wait();
+        wgmma_fence();
+        qk<D>(s, sq, sK + st * Geo_::TILE);
+        wgmma_commit();
+        mbar_wait(full_v + 8 * sp, ((j - 1) / STAGES) & 1);
+        pv<D>(acc, p, sV + sp * Geo_::TILE);
+        wgmma_commit();
+        turn_pass();
+        wgmma_wait<1>();
+        fence_operand(s);
+        if (leader) mbar_arrive(empty_k + 8 * st);
+        softmax(j, alpha);
+        wgmma_wait<0>();
+        fence_operand(acc);
+        if (leader) mbar_arrive(empty_v + 8 * sp);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        to_p();
+      }
+      const int sp = (n - 1) % STAGES;
+      mbar_wait(full_v + 8 * sp, ((n - 1) / STAGES) & 1);
+      fence_operand(acc);
+      turn_wait();
+      wgmma_fence();
+      pv<D>(acc, p, sV + sp * Geo_::TILE);
+      wgmma_commit();
+      if (cw == 0) turn_pass();   // consumer 0 takes no turn after this
+      wgmma_wait<0>();
+      fence_operand(acc);
+    }
+
+    // o = acc / max(l, 1e-30) over the 4 threads that share a row
+    __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int r = (i / 2) % 2, row = row0 + 8 * r;
+      if (row < S)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + row * oss + 8 * (i / 4) + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[i] * l[r], acc[i + 1] * l[r]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled (its 12.0 form), found
+// through the runtime, so the library links no -lcuda (needs CUDA 12.5+)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &res);
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a 4-D map (D, rows, heads, batch) over a bf16 tensor with the given
+// (row, head, batch) strides in elements, boxes of (INNER, 128, 1, 1),
+// rows past `rows` read as zero
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+                int batch, long long srow, long long shead, long long sbatch) {
+  using G = Geo<D>;
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(rows > 0 ? rows : 1),
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)srow * 2, (cuuint64_t)shead * 2,
+                                 (cuuint64_t)sbatch * 2};
+  const cuuint32_t box[4] = {G::INNER, BQ, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = G::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hkv, int S, int Tk, const long long* st, float scale,
+           int causal, int q_offset, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map<D>(&mq, q, S, H, B, st[2], st[1], st[0]) ||
+      !tensor_map<D>(&mk, k, Tk, Hkv, B, st[5], st[4], st[3]) ||
+      !tensor_map<D>(&mv, v, Tk, Hkv, B, st[8], st[7], st[6]))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = Geo<D>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int q_tiles = (S + BQ - 1) / BQ;
+  flash_fwd_sm90<D><<<q_tiles * H * B, THREADS, bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], B,
+      H, H / Hkv, S, Tk, q_tiles, scale * 1.4426950408889634f, causal,
+      q_offset);
+  return (int)cudaGetLastError();
+}
+
+int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+             int H, int Hkv, int S, int Tk, int D, const long long* st,
+             float scale, int causal, int q_offset, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<16>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                        q_offset, stream);
+    case 32:
+      return launch<32>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                        q_offset, stream);
+    case 64:
+      return launch<64>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                        q_offset, stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                         q_offset, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 // strides: the (batch, head, row) strides of q, k, v and o, in elements,
 // in that order (12 values); the D axis is contiguous. bf16 != 0: q, k,
 // v and o are bf16, else f32. Returns the CUDA error code of the launch
-// (0 = none; cudaErrorInvalidValue for a D the kernel is not built for).
+// (0 = none; cudaErrorInvalidValue for a D the kernel is not built for
+// or a bf16 tensor that TMA cannot map).
 extern "C" int saath_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int Hkv, int S, int Tk, int D,
@@ -287,8 +672,8 @@ extern "C" int saath_flash_attention(const void* q, const void* k,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, Tk, D, strides,
-                                   scale, causal, q_offset, s);
+    return hopper::launch_d(q, k, v, o, B, H, Hkv, S, Tk, D, strides, scale,
+                            causal, q_offset, s);
   return launch_d<float>(q, k, v, o, B, H, Hkv, S, Tk, D, strides, scale,
                          causal, q_offset, s);
 }

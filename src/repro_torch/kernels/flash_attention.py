@@ -4,11 +4,25 @@
 Replaces the Pallas kernel `repro/kernels/flash_attention.py:
 flash_attention_pallas`, the fast path of the online-softmax attention
 that the prefill of every attention layer runs
-(`repro/models/attention.py:181`, `jnp_flash`). One block per (batch,
-head, tile of 64 query rows) loops over the key tiles up to its causal
-limit with the rows' running max, sum and accumulator in registers;
-what bounds it on the card and how its design answers that are in the
-head note of `csrc/flash_attention.cu`.
+(`repro/models/attention.py:181`, `jnp_flash`). A block takes one
+(batch, head, tile of query rows) and loops over the key tiles up to
+its causal limit with the rows' running max, sum and accumulator in
+registers. Two designs, by dtype (the head note of
+`csrc/flash_attention.cu` has both, and what bounds each):
+
+- f32: 64 query rows a block, every product on the CUDA cores (the
+  2e-6 bar rules out TF32); bound by its f32 multiply-adds.
+- bf16: 128 query rows a block; a producer warpgroup streams K and V
+  tiles with TMA into a 2-stage ring of shared memory, two consumer
+  warpgroups form both products with `wgmma` on the tensor cores (bf16
+  operands, f32 sums) and overlap the softmax's exps with them; bound by
+  the tensor cores. P is rounded to bf16 before P V (ROADMAP C8).
+
+TMA reads q, k and v in place from their strides, and needs a
+16-byte-aligned base and (batch, head, row) strides that are multiples
+of 16 bytes (8 bf16 elements) on every axis longer than 1: a bf16 view
+that breaks the rule raises `ValueError` (copy it with `.contiguous()`
+first); nothing falls back to another path.
 
 `flash_attention_cuda` launches it; `kernels.ops.flash_attention`
 dispatches CUDA tensors here and CPU tensors to
@@ -51,6 +65,30 @@ def _bhs_strides(t: torch.Tensor, name: str):
     return t.stride()[:3]
 
 
+def _tma_strides(t: torch.Tensor, name: str):
+    """`_bhs_strides` of a bf16 tensor that TMA loads, after checking
+    the rule TMA sets (16-byte-aligned base, strides multiples of 16
+    bytes); a size-1 axis is never stepped, so its stride is passed as
+    D."""
+    st = _bhs_strides(t, name)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the bf16 attention kernel loads it with "
+                         f"TMA, which needs a 16-byte-aligned base; its "
+                         f"data pointer is {t.data_ptr() % 16} bytes past "
+                         f"a 16-byte boundary")
+    out = []
+    for axis, size, s in zip(("batch", "head", "row"), t.shape[:3], st):
+        if size == 1:
+            s = t.shape[3]
+        elif (s * t.element_size()) % 16:
+            raise ValueError(f"{name}: the bf16 attention kernel loads it "
+                             f"with TMA, which needs strides that are "
+                             f"multiples of 16 bytes; its {axis} stride is "
+                             f"{s} elements ({s * t.element_size()} bytes)")
+        out.append(s)
+    return out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          q_offset: int = 0) -> torch.Tensor:
@@ -60,7 +98,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are read in place); H a multiple of Hkv, D in `HEAD_DIMS`,
     q_offset >= 0. Returns o (B, H, S, D) in q's dtype, laid out like q
     (so `o.transpose(1, 2)` of a transposed q is contiguous), the
-    contract of `ref.flash_attention_ref`."""
+    contract of `ref.flash_attention_ref`. In bf16 the inputs must meet
+    TMA's alignment rule (see the module note) or it raises
+    ValueError."""
     global launches
     if q.dim() != 4 or not q.is_cuda:
         raise ValueError("flash_attention_cuda needs q as a (B, H, S, D) "
@@ -85,9 +125,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    loaded = _tma_strides if q.dtype == torch.bfloat16 else _bhs_strides
     strides = (ctypes.c_longlong * 12)(
-        *_bhs_strides(q, "q"), *_bhs_strides(k, "k"),
-        *_bhs_strides(v, "v"), *_bhs_strides(o, "o"))
+        *loaded(q, "q"), *loaded(k, "k"), *loaded(v, "v"),
+        *_bhs_strides(o, "o"))
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -99,7 +140,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"attention kernel launch failed at (B, H, Hkv, "
                            f"S, T, D) = {(B, H, Hkv, S, T, D)}: CUDA error "
                            f"{err} (a shared-memory request above the "
-                           f"block's limit is error 1)")
+                           f"block's limit, or a tensor map the CUDA driver "
+                           f"refused, is error 1)")
     launches += 1
     return o
 

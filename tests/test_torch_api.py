@@ -1,5 +1,6 @@
-"""The port's front door: Result semantics, device handling, and the
-package boundary (no jax, nothing of `repro`)."""
+"""The port's front door: Result semantics, device handling, the
+package boundary (no jax, nothing of `repro`), and the kernels' checks
+made in Python before a launch (K5's TMA rule, the build's hash)."""
 import ast
 import subprocess
 import sys
@@ -99,6 +100,63 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     a = torch.zeros(1, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         contention_cuda(a, a, torch.zeros(1, 4, dtype=torch.bool))
+
+
+def _bf16_view(kind):
+    """bf16 (B, H, S, D) views of CPU memory, for the TMA rule."""
+    if kind == "contiguous":
+        return torch.zeros(2, 3, 40, 64, dtype=torch.bfloat16)
+    if kind == "transposed":          # a (B, S, H, D) tensor's view
+        return torch.zeros(2, 40, 3, 64, dtype=torch.bfloat16).transpose(1, 2)
+    if kind == "cache slice":         # rows [0, 40) of a 96-row cache
+        return torch.zeros(1, 96, 1, 16, dtype=torch.bfloat16)[:, :40] \
+            .transpose(1, 2)
+    if kind == "one element off":
+        flat = torch.zeros(2 * 3 * 40 * 64 + 1, dtype=torch.bfloat16)
+        return flat[1:].view(2, 3, 40, 64)
+    return torch.zeros(2, 3, 40, 68, dtype=torch.bfloat16)[..., :64]
+
+
+@pytest.mark.parametrize("kind,strides", [
+    ("contiguous", (7680, 2560, 64)),
+    ("transposed", (7680, 64, 192)),
+    ("cache slice", (16, 16, 16)),    # size-1 batch and head axes pass D
+])
+def test_bf16_attention_takes_views_tma_can_load(kind, strides):
+    """The bf16 K5 wrapper passes a view's (batch, head, row) strides to
+    the tensor maps; a size-1 axis is never stepped and passes D."""
+    from repro_torch.kernels.flash_attention import _tma_strides
+
+    assert tuple(_tma_strides(_bf16_view(kind), "q")) == strides
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("one element off", "16-byte-aligned base"),
+    ("row stride 68", "row stride is 68 elements"),
+])
+def test_bf16_attention_refuses_views_tma_cannot_load(kind, match):
+    """Checked in Python before any launch: the bf16 K5 wrapper raises on
+    a base or a stride that TMA cannot take (no fallback)."""
+    from repro_torch.kernels.flash_attention import _tma_strides
+
+    with pytest.raises(ValueError, match=match):
+        _tma_strides(_bf16_view(kind), "q")
+
+
+def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
+    """An edited `.cuh` header under csrc/ renames every library, so a
+    stale build is never loaded (as an edited `.cu` source does)."""
+    from repro_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    (tmp_path / "h.cuh").write_text("// helpers 1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setitem(build.SOURCES, "k", ("k.cu", []))
+    first = build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// helpers 2\n")
+    second = build.library_path("k")
+    (tmp_path / "k.cu").write_text("// kernel, edited\n")
+    assert len({first, second, build.library_path("k")}) == 3
 
 
 @pytest.mark.parametrize("kw,err,match", [

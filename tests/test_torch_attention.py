@@ -7,6 +7,10 @@
   `tests/test_kernels.py:80-84`, f32 and bf16, causal and not, at the
   reference's bars (atol 2e-6 f32, 2e-2 bf16);
 * the `q_offset` (chunked prefill) case, and a ragged S with T > S;
+* a test-local emulation of the arithmetic of K5's bf16 instance (f32
+  scores from bf16 inputs over key tiles of 128, exp2 with the folded
+  scale, P rounded to bf16 before P V) against the Pallas kernel and
+  `flash_attention_ref` at the bf16 bar: the bar admits the design;
 * `rope`, the activations and `mlp_ffn` against the JAX functions;
 * the GQA attention module against `gqa_apply` on the StarCoder2 SMOKE
   weights in f32: a prefill that fills the cache, then a decode step at
@@ -124,6 +128,62 @@ def test_flash_attention_small_blocks_equal_one_block():
     torch.testing.assert_close(
         ref.flash_attention_ref(q, k, v, causal=True, block=8), one,
         atol=1e-6, rtol=0)
+
+
+def hopper_bf16_emulation(q, k, v, *, causal, q_offset, bk=128):
+    """The arithmetic of K5's bf16 instance (`csrc/flash_attention.cu`,
+    `hopper::flash_fwd_sm90`), in plain torch: scores q k^T in f32 from
+    the bf16 inputs, key tiles of `bk`, the running max in raw score
+    units, p = exp2(s c - m c) with c = D^-1/2 log2 e folded into one
+    multiply-add, l summed from the f32 p, and P rounded to bf16 before
+    P V (f32 sums); o = acc / max(l, 1e-30) in bf16."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    c = torch.tensor(D ** -0.5 * np.log2(np.e), dtype=f32)
+    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(f32)
+    q_pos = q_offset + torch.arange(S)
+    m = torch.full((B, Hkv, H // Hkv, S), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, Hkv, H // Hkv, S, D)
+    for j in range(0, T, bk):
+        kb, vb = k[:, :, j:j + bk].to(f32), v[:, :, j:j + bk].to(f32)
+        s = torch.einsum("bhgsd,bhtd->bhgst", qg, kb)
+        if causal:
+            k_pos = j + torch.arange(kb.shape[2])
+            s = torch.where(k_pos[None, :] <= q_pos[:, None], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2((m - mu) * c)
+        p = torch.exp2(s * c - (mu * c)[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bhtd->bhgsd", p.to(torch.bfloat16).to(f32), vb)
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,T,D,q_offset",
+    [shape + (0,) for shape in SWEEP]
+    + [(2, 4, 2, 23, 40, 32, 17), (1, 4, 2, 512, 512, 128, 0)])
+def test_bf16_kernel_rounding_within_the_bar(B, H, Hkv, S, T, D, q_offset,
+                                             causal):
+    """The bf16 design's rounding (P in bf16 where the Pallas contract
+    keeps it f32; ROADMAP C8) against the Pallas kernel in interpret
+    mode and `flash_attention_ref`, at the bf16 bar of 2e-2."""
+    (jq, jk, jv), (q, k, v) = qkv(B, H, Hkv, S, T, D, "bfloat16",
+                                  seed=S + D)
+    got = hopper_bf16_emulation(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, D)
+    blk = 128 if S >= 128 else 16
+    close(got, jops.flash_attention(jq, jk, jv, causal=causal, bq=blk,
+                                    bk=blk, q_offset=q_offset,
+                                    force="interpret"), 2e-2)
+    close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset).float(), 2e-2)
 
 
 def test_ops_flash_attention_rejects_bad_arguments():

@@ -454,11 +454,14 @@ def test_serve_session_without_card_raises(monkeypatch):
 
 # (B, H, Hkv, S, T, D, q_offset): tests/test_kernels.py's sweep, its
 # chunked-prefill offset, a ragged S against T > S, the smoke head size,
-# and the serve shape (4 prompts of 2000 tokens, StarCoder2-3B heads)
+# the serve shape (4 prompts of 2000 tokens, StarCoder2-3B heads), then
+# at D = 128 StarCoder2's G = 12 with S and T no multiple of the bf16
+# kernel's 128-row tiles, and a chunk at q_offset 250 against T > S
 FLASH_SHAPES = [(1, 1, 1, 16, 16, 32, 0), (2, 4, 2, 64, 64, 64, 0),
                 (1, 8, 1, 32, 32, 128, 0), (1, 2, 2, 40, 40, 64, 0),
                 (1, 2, 2, 32, 64, 32, 32), (2, 4, 2, 23, 40, 32, 17),
-                (2, 4, 2, 100, 100, 16, 0), (4, 24, 2, 2000, 2000, 128, 0)]
+                (2, 4, 2, 100, 100, 16, 0), (4, 24, 2, 2000, 2000, 128, 0),
+                (1, 24, 2, 300, 300, 128, 0), (2, 8, 2, 150, 400, 128, 250)]
 FLASH_ATOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 
 
@@ -491,23 +494,46 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, Hkv, S, T, D,
 
 
 @pytest.mark.gpu
-def test_flash_attention_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
     """(B, S, H, D) tensors passed as transposed views, K and V as slices
-    of a longer cache: the same result as contiguous copies, and o laid
-    out like q (its transpose back is contiguous)."""
+    of a longer cache (whose rows past S hold other values): the same
+    result as contiguous copies, causal and not (f32 exactly, bf16 to
+    its bar), and o laid out like q (its transpose back is
+    contiguous)."""
     B, S, H, Hkv, D = 2, 70, 6, 2, 64
     rng = np.random.default_rng(0)
     qs = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32),
-                         device=cuda)
+                         device=cuda).to(dtype)
     cache = torch.as_tensor(rng.normal(size=(2, B, 96, Hkv, D)).astype(
-        np.float32), device=cuda)
+        np.float32), device=cuda).to(dtype)
     q = qs.transpose(1, 2)
     k, v = (c[:, :S].transpose(1, 2) for c in cache)
-    got = ops.flash_attention(q, k, v)
-    want = ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous())
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert got.transpose(1, 2).is_contiguous()
+    atol = 0 if dtype == torch.float32 else FLASH_ATOL[dtype]
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+        assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_rejects_views_tma_cannot_load(cuda):
+    """The bf16 kernel loads q, k and v with TMA: a base pointer one
+    element off a 16-byte boundary, or a row stride that is no multiple
+    of 16 bytes, raises ValueError naming it (no fallback)."""
+    q, k, v = flash_inputs(1, 2, 1, 8, 8, 32, seed=0,
+                           dtype=torch.bfloat16, device=cuda)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="q: .*16-byte-aligned base"):
+        ops.flash_attention(shifted, k, v)
+    wide = torch.zeros(1, 1, 8, 36, dtype=torch.bfloat16, device=cuda)
+    wide[..., :32] = k
+    with pytest.raises(ValueError, match="k: .*row stride is 36 elements"):
+        ops.flash_attention(q, wide[..., :32], v)
 
 
 @pytest.mark.gpu

@@ -19,7 +19,9 @@ about one mixer runs for both architectures (`ARCHS`).
 * the port on the CPU reproduces `tests/data/torch_port_mamba2_golden.
   json` and `torch_port_starcoder2_golden.json`, the full-width
   references `chip_smoke.py` holds the card to; `slow` tests regenerate
-  them with the JAX package.
+  them with the JAX package;
+* StarCoder2-3B at full width (head_dim 128), 2 layers, in bf16 within
+  the bf16 bar of the JAX package's logits (`slow`, ROADMAP C6).
 """
 import dataclasses
 import json
@@ -348,6 +350,27 @@ def check_golden(arch, path):
         np.testing.assert_allclose(
             [float(c[key].double().norm()) for c in cache], gold[field],
             rtol=1e-4)
+
+
+@pytest.mark.slow
+def test_starcoder2_full_width_bf16_within_bar():
+    """ROADMAP C6: where attention scales. `jnp_flash` multiplies q by
+    D^-1/2 in q's dtype, the port scales the f32 scores; at the SMOKE
+    head_dim 16 the scale is exact, so this runs StarCoder2-3B at full
+    width (head_dim 128), 2 layers, bf16, weights `numpy_params(cfg,
+    seed=0)`, 2 prompts of 40 tokens and 4 greedy tokens: logits within
+    C5's bf16 bar (measured 0.03125, one bf16 step) and tokens equal."""
+    cfg, jcfg = configs("bfloat16", full=True, layers=2, arch=ATTN_ARCH)
+    params, meta = lm.numpy_params(cfg, seed=0)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    jl, jt, _ = jax_greedy(jcfg, jax.tree.map(jnp.asarray, params), meta,
+                           prompts, 4)
+    pl, pt, _ = port_greedy(lm.from_reference(params, meta, cfg), prompts,
+                            4)
+    for got, want in zip(pl, jl):
+        np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=0)
+    np.testing.assert_array_equal(pt, jt)
 
 
 def test_port_reproduces_mamba2_golden_on_cpu():
