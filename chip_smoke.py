@@ -34,7 +34,9 @@ against its plain PyTorch version on the same inputs:
    against the tick with the plain versions (order, queue, contention,
    expiry and admission exact; rates to rtol 1e-6), and K1's and K2's
    time at the main path's shapes beside the plain version, the bound
-   and (K1) one PyTorch call computing the same function;
+   and (K1) one PyTorch call computing the same function; K2's chain
+   (`walk_chain`): the busiest lane's dependent steps and the measured
+   ns per step;
 7. the leaf-spine main path: the same fleet under `LeafSpine(4, 4.0,
    "maxmin")` (38 leaves, 188 rows a side), counters as in 4 (K1, K2 and
    K3 must each equal the event steps; K4 and K5 0), the same checks
@@ -45,8 +47,8 @@ against its plain PyTorch version on the same inputs:
 9. as 6 on the heaviest captured leaf-spine ticks (K1 + K2 + K3 against
    the plain versions; the rates, `wc_flow` among them, must agree bit
    for bit), and K2's (admission only) and K3's time at that path's
-   shapes beside the plain version and the bound; K3's latency floor
-   (rounds x barrier-separated steps) is printed beside it;
+   shapes beside the plain version and the bound, with K2's chain and
+   K3's rounds and ns per round;
 10. K4 (the SSD chunked scan) against `ssd_chunked_ref` on the shapes of
    `tests/test_kernels.py` and the serve shape (4, 1024, 64, 64, G = 1,
    N = 128, lc = 128), f32 and bf16, plus the two-half state chaining,
@@ -95,7 +97,10 @@ against its plain PyTorch version on the same inputs:
    tokens and 8 teacher-forced decode steps with the plain attention
    and with K5, logits to atol 0.1 (the bf16 bar of ROADMAP C5).
 
-Prints a `{"kernels": [...]}` line (`launches` = launches over the
+Kernel times are device times (`cuda_ms`: a sleep kernel holds the
+stream while the timed calls queue, so a kernel faster than its
+wrapper's host work does not read as that host work). Prints a
+`{"kernels": [...]}` line (`launches` = launches over the
 four main-path runs, split by path in `launches_by_path`), the
 nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
@@ -125,13 +130,14 @@ BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
 # the SFUs' exps: 16 a clock an SM (the CUDA programming guide's
 # throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+SM_HZ = 1.98e9            # boost clock: turns a hold time into sleep cycles
 FLEET = 16
 COFLOWS, PORTS = 526, 150
 PARITY_COFLOWS = 48
 CAPTURE_EVERY = 64
-# the barrier-separated steps of one max-min round in csrc/maxmin.cu
-# (zero, count, level + min, saturate, freeze, subtract)
-MAXMIN_STEPS_PER_ROUND = 6
+# the block barriers of one max-min round in csrc/maxmin.cu: after the
+# row update, levels and least level; after the saturated rows' lists
+MAXMIN_STEPS_PER_ROUND = 2
 SERVE_ARCH = "mamba2-1.3b"
 # (B, L, H, G, Dh, N, lc): tests/test_kernels.py's SSD sweep, then the
 # serve shape (4 prompts of 1000 tokens padded to 1024, Mamba2-1.3B heads)
@@ -170,12 +176,20 @@ def smi():
 
 def cuda_ms(fn, reps):
     """Mean device milliseconds of `fn` over `reps` back-to-back calls
-    (CUDA events, after warm-up)."""
+    (CUDA events, after warm-up). A sleep kernel holds the stream while
+    the calls are queued, for twice the host time they take to queue, so
+    that the events time the device: a kernel faster than its wrapper's
+    host work would otherwise read as that host work."""
     import torch
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * reps * queue_s, 2.0) * SM_HZ))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -244,6 +258,33 @@ def walk_bound_ms(args, out):
             + wc_flow.numel() * 4
         ops += nf * 8
     return bound(nbytes, ops)
+
+
+def walk_chain(args, out, admit_only):
+    """K2's chain on its busiest lane, read off the inputs and outputs:
+    one step per admission, per coflow-fill step (coflow mode), per
+    window of 32 of the missed coflows' flows and per non-zero take
+    (flow mode). Returns (steps, lane, {part: count})."""
+    import torch
+
+    order, n_live, cnt, _, _, wc, flows = args
+    rate, admitted, _, wc_flow, _ = out
+    gate = (wc > 0) & (not admit_only)
+    parts = {"admissions": n_live.long()}
+    if flows is None:
+        parts["coflow fill"] = torch.where(gate, n_live, 0)
+    else:
+        C = cnt.shape[1]
+        lead = torch.arange(C, device=cnt.device)[None] < n_live[:, None]
+        missed = torch.zeros_like(admitted).scatter_(1, order, lead) \
+            & ~admitted
+        n = ((flows.flow_hi - flows.flow_lo) * missed).sum(-1)
+        parts["flow windows"] = torch.where(gate, (n + 31) // 32, 0)
+        parts["takes"] = torch.where(gate, (wc_flow != 0).sum(-1), 0) \
+            if wc_flow is not None else torch.zeros_like(n)
+    steps = sum(parts.values())
+    b = int(steps.argmax())
+    return int(steps[b]), b, {k: int(v[b]) for k, v in parts.items()}
 
 
 def maxmin_work(args, rates):
@@ -933,9 +974,12 @@ def main():
     print(f"[6] K1 at ({B}, {C}, {P}): kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain:.4f} ms, bf16 matmul {k1_lib:.4f} ms, bound "
           f"{k1_bound:.5f} ms ({k1_by})")
+    k2_steps, k2_lane, k2_parts = walk_chain(wa, walk_out, False)
     print(f"[6] K2 at ({B}, {C}, {wa[2].shape[2]}), n_live "
           f"{int(wa[1].sum())}: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain:.1f} ms, bound {k2_bound:.5f} ms ({k2_by})")
+          f"{k2_plain:.1f} ms, bound {k2_bound:.5f} ms ({k2_by}); chain of "
+          f"the busiest lane ({k2_lane}): {k2_steps} dependent steps "
+          f"{k2_parts}, {1e6 * k2_ms / max(k2_steps, 1):.1f} ns per step")
 
     # ---- 7. the leaf-spine max-min main path ---------------------------
     lres, lcounts, lcaptured = drive(
@@ -973,11 +1017,17 @@ def main():
     la, lk = lgrabbed["tick_walk"]
     lk2_ms = cuda_ms(lambda: ops.tick_walk(*la, **lk), 20)
     lk2_plain = host_ms(lambda: ops.tick_walk(*la, **lk, force="ref"))
-    lk2_bound, lk2_by = walk_bound_ms(la, ops.tick_walk(*la, **lk))
+    lwalk_out = ops.tick_walk(*la, **lk)
+    lk2_bound, lk2_by = walk_bound_ms(la, lwalk_out)
+    lk2_steps, lk2_lane, lk2_parts = walk_chain(la, lwalk_out,
+                                                lk["admit_only"])
     print(f"[9] K2 (admission only) at ({la[2].shape[0]}, "
           f"{la[2].shape[1]}, {la[2].shape[2]}), n_live "
           f"{int(la[1].sum())}: kernel {lk2_ms:.4f} ms, plain "
-          f"{lk2_plain:.1f} ms, bound {lk2_bound:.5f} ms ({lk2_by})")
+          f"{lk2_plain:.1f} ms, bound {lk2_bound:.5f} ms ({lk2_by}); chain "
+          f"of the busiest lane ({lk2_lane}): {lk2_steps} dependent steps "
+          f"{lk2_parts}, {1e6 * lk2_ms / max(lk2_steps, 1):.1f} ns per "
+          f"step")
     ma, mk = lgrabbed["maxmin_rates"]
     margs = dict(src=ma[0], dst=ma[1], cand=ma[2], avail=ma[3], **mk)
     rates = ops.maxmin_rates(*ma, **mk)
@@ -985,17 +1035,15 @@ def main():
     k3_plain = cuda_ms(lambda: ops.maxmin_rates(*ma, **mk, force="ref"), 3)
     nbytes, mops, rounds = maxmin_work(margs, rates)
     k3_bound, k3_by = bound(nbytes, mops)
-    steps = rounds * MAXMIN_STEPS_PER_ROUND
     Bm, Fm = ma[0].shape
     print(f"[9] K3 at ({Bm} lanes, {ma[3].shape[1] // 2} rows a side, "
           f"{Fm} flows), {int(ma[2].sum())} candidates: kernel "
           f"{k3_ms:.4f} ms, plain {k3_plain:.3f} ms, bound {k3_bound:.5f} "
-          f"ms ({k3_by}); latency floor: {rounds} rounds (distinct "
-          f"candidate levels of the busiest lane) x "
-          f"{MAXMIN_STEPS_PER_ROUND} barrier-separated steps = {steps} "
-          f"dependent steps, {1e3 * k3_ms / max(steps, 1):.3f} us per step "
-          f"as measured; library: null (no single PyTorch call computes "
-          f"max-min fair rates)")
+          f"ms ({k3_by}); chain: {rounds} rounds (distinct candidate levels "
+          f"of the busiest lane) of {MAXMIN_STEPS_PER_ROUND} block "
+          f"barriers, {1e6 * k3_ms / max(rounds, 1):.1f} ns per round; "
+          f"library: null (no single PyTorch call computes max-min fair "
+          f"rates)")
 
     # ---- 10. K4 against its plain version ------------------------------
     k4 = {}

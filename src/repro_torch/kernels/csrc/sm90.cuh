@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, wgmma descriptors and products, register reallocation. Used by
-// the bf16 instance of K5 (flash_attention.cu); built into each library
-// that includes it, and hashed with it by kernels/build.py.
+// the bf16 instance of K5 (flash_attention.cu) and by the rings of K2
+// (walk.cu); built into each library that includes it, and hashed with
+// it by kernels/build.py.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>

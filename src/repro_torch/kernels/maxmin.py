@@ -7,7 +7,10 @@ under `LeafSpine(wc_fill="maxmin")`): bipartite max-min fair rates of
 the work-conservation candidates by progressive filling. The Pallas
 kernel runs dense (P, F) one-hot mat-vecs; the CUDA kernel
 (`csrc/maxmin.cu`) takes each flow's row ids instead, one block per
-lane, with the row state in shared memory and an exact early exit. What
+lane, with the row state in shared memory, a compacted candidate list
+(in a global scratch this wrapper allocates when a lane's candidates
+outgrow shared memory) that each round shrinks to its survivors,
+incremental counts, two barriers a round and an exact early exit. What
 bounds it on the card, and why it is built with `-fmad=false`, is in
 the source's head note.
 
@@ -25,8 +28,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import maxmin_rounds
 
-MAX_SHARED = 232448   # bytes of shared memory one Hopper block may use
-
 launches = 0
 _lib = None
 
@@ -35,11 +36,11 @@ def _library():
     global _lib
     if _lib is None:
         lib = build.load("maxmin")
-        lib.saath_maxmin.argtypes = [ctypes.c_void_p] * 7 + \
+        lib.saath_maxmin.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.saath_maxmin.restype = ctypes.c_int
-        lib.saath_maxmin_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.saath_maxmin_smem.restype = ctypes.c_size_t
+        lib.saath_maxmin_scratch.argtypes = [ctypes.c_int] * 4
+        lib.saath_maxmin_scratch.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -74,15 +75,21 @@ def maxmin_cuda(src: torch.Tensor, dst: torch.Tensor, cand: torch.Tensor,
             build.checked(cand, "cand", (B, F), torch.bool, dev),
             build.checked(avail, "avail", (B, W), torch.float32, dev)]
     lib = _library()
-    if lib.saath_maxmin_smem(W, F) > MAX_SHARED:
-        raise ValueError(f"maxmin_cuda: {W} rows and {F} flows exceed one "
+    n_scratch = lib.saath_maxmin_scratch(B, P, Lf, F)
+    if n_scratch < 0:
+        raise ValueError(f"maxmin_cuda: the state of {W} rows exceeds one "
                          f"block's shared memory")
+    # the candidate lists of a lane that outgrows shared memory
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
+        if n_scratch else None
     rates = torch.empty((B, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.saath_maxmin(
             *(None if t is None else t.data_ptr() for t in keep),
-            rates.data_ptr(), B, F, P, Lf, maxmin_rounds(W), stream)
+            rates.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, F, P, Lf,
+            maxmin_rounds(W), stream)
     if err:
         raise RuntimeError(f"max-min kernel launch failed: CUDA error "
                            f"{err}")
@@ -90,4 +97,4 @@ def maxmin_cuda(src: torch.Tensor, dst: torch.Tensor, cand: torch.Tensor,
     return rates
 
 
-__all__ = ["maxmin_cuda", "MAX_SHARED"]
+__all__ = ["maxmin_cuda"]

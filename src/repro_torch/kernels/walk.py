@@ -1,5 +1,5 @@
 """The coordinator tick's admission and work-conservation walk as one
-hand-written CUDA kernel for Hopper.
+hand-written CUDA kernel for Hopper (kernel K2).
 
 It has no Pallas counterpart: `repro/core/jax_coordinator.py:tick_core`
 left these loops to XLA as `while_loop`s (admission `:311-322`,
@@ -10,8 +10,10 @@ would need the trip counts on the host every tick; the kernel
 the tick loop never synchronizes. It walks W = 2P + 2Lf capacity
 columns (ports, then uplinks and downlinks; Lf = 0 on the big switch)
 and in its admission-only mode stops after admission, for the max-min
-fill (K3) to run on the capacity it leaves. Its head note says what
-bounds it and why it is built with `-fmad=false`.
+fill (K3) to run on the capacity it leaves. Each lane's chain runs on
+one warp fed from shared-memory rings, and the per-flow fill skips,
+exactly, the flows that cannot take; its head note gives the argument,
+what bounds it and why it is built with `-fmad=false`.
 
 `tick_walk_cuda` launches it; `kernels.ops.tick_walk` dispatches to it
 for CUDA tensors and to `ref.tick_walk_ref` for CPU tensors. `launches`
@@ -27,22 +29,24 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import WalkFlows
 
-MAX_COLUMNS = 8192   # W floats of residual capacity in shared memory
+MAX_COLUMNS = 8192   # W columns whose stages and rings fit in shared memory
 MODE_COFLOW, MODE_FLOW, MODE_ADMIT = 0, 1, 2
 
 launches = 0
-_fn = None
+_lib = None
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("walk").saath_tick_walk
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _library():
+    global _lib
+    if _lib is None:
+        lib = build.load("walk")
+        lib.saath_tick_walk.argtypes = [ctypes.c_void_p] * 19 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.saath_tick_walk.restype = ctypes.c_int
+        lib.saath_tick_walk_scratch.argtypes = [ctypes.c_int] * 3
+        lib.saath_tick_walk_scratch.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
 
 
 def tick_walk_cuda(order: torch.Tensor, n_live: torch.Tensor,
@@ -98,14 +102,20 @@ def tick_walk_cuda(order: torch.Tensor, n_live: torch.Tensor,
         fptr = [t.data_ptr() for t in keep] + [None] * (7 - len(keep))
         wc_flow = torch.empty((B, F), dtype=f32, device=dev)
         out_flow = wc_flow.data_ptr()
+    lib = _library()
+    # the walk's prefix lives in shared memory unless C is large
+    n_scratch = lib.saath_tick_walk_scratch(B, C, mode)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev) \
+        if n_scratch else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(order.data_ptr(), n_live.data_ptr(),
-                        cnt.data_ptr(), avail0.data_ptr(),
-                        min_rate.data_ptr(), wc.data_ptr(), *fptr,
-                        rate.data_ptr(), admitted.data_ptr(),
-                        wc_rate.data_ptr(), out_flow, avail.data_ptr(),
-                        B, C, P, Lf, F, mode, stream)
+        err = lib.saath_tick_walk(
+            order.data_ptr(), n_live.data_ptr(), cnt.data_ptr(),
+            avail0.data_ptr(), min_rate.data_ptr(), wc.data_ptr(), *fptr,
+            rate.data_ptr(), admitted.data_ptr(), wc_rate.data_ptr(),
+            out_flow, avail.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, C, P, Lf,
+            F, mode, stream)
     if err:
         raise RuntimeError(f"tick walk kernel launch failed: CUDA error "
                            f"{err}")

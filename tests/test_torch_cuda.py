@@ -337,6 +337,202 @@ def test_leafspine_fleet_replay_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(gpu.cct, cpu.cct)
 
 
+
+# ---- the redesigned K2 and K3 at their edges -----------------------------
+
+def _walk_inputs(d, hpl, mode, device):
+    """The walk's inputs from `random_tick_inputs` on `device`, ordered
+    by arrival rank with the coflows that have live ports first."""
+    _, batch, fv = torch_tick_args(d, device)
+    Lf = batch.cnt_x.shape[-1] // 2 if hpl else 0
+    cnt = torch.cat([batch.cnt_s, batch.cnt_r]
+                    + ([batch.cnt_x] if hpl else []), -1)
+    avail0 = torch.cat([batch.bw_s, batch.bw_r]
+                       + ([batch.bw_x] if hpl else []), -1)
+    hp = batch.active & ((batch.cnt_s > 0).any(-1)
+                         | (batch.cnt_r > 0).any(-1))
+    order = torch.argsort(batch.arrival, dim=-1)
+    order = order.gather(1, torch.sort(
+        (~hp).long().gather(1, order), dim=-1, stable=True).indices)
+    B = order.shape[0]
+    args = [order, hp.sum(-1), cnt, avail0,
+            torch.full((B,), UNIT.min_rate_frac * UNIT.port_bw,
+                       device=device),
+            torch.ones(B, device=device),
+            None if mode == "coflow" else fv]
+    return args, dict(num_links=Lf, admit_only=mode == "admit")
+
+
+def _walk_equal(args, kw):
+    got = ops.tick_walk(*args, **kw)
+    want = ops.tick_walk(*args, **kw, force="ref")
+    torch.cuda.synchronize()
+    for k, g, w in zip(("rate", "admitted", "wc_rate", "wc_flow", "avail"),
+                       got, want):
+        if w is None:
+            assert g is None, k
+        else:
+            assert torch.equal(g, w), k
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpl", [0, 4])
+def test_walk_kernel_exhausted_and_negative_rows(cuda, hpl):
+    """Rows at -0, +0 and below 0 (as admission rounding leaves them)
+    and counts of 3, 7 and 11: the fill skips every flow on them."""
+    d = random_tick_inputs(3, 256, 150, seed=21, params=UNIT, max_width=12,
+                           hosts_per_leaf=hpl)
+    args, kw = _walk_inputs(d, hpl, "flow", cuda)
+    cnt = args[2].clone()
+    on = cnt > 0
+    cnt[on] = torch.tensor([3.0, 7.0, 11.0], device=cuda).repeat(
+        int(on.sum()) // 3 + 1)[:int(on.sum())]
+    avail0 = args[3].clone()
+    avail0[:, :3] = torch.tensor([-0.0, 0.0, -1.19e-7], device=cuda)
+    args[2], args[3], args[4] = cnt, avail0, torch.full_like(args[4], 1e-6)
+    want = _walk_equal(args, kw)
+    assert (want[4] < 0).any() and want[3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpl", [0, 4])
+def test_walk_kernel_coflow_wider_than_the_flow_ring(cuda, hpl):
+    """A missed coflow of 3000 flows (the ring holds 32 windows of 32)
+    among ordinary ones."""
+    d = random_tick_inputs(2, 64, 16, seed=5, params=UNIT,
+                           hosts_per_leaf=hpl)
+    rng = np.random.default_rng(6)
+    wide = 3000
+    B, C, P = 2, 64, 16
+    d["width"][:, 0] = wide
+    F = 64 * (-(-(wide + 6 * C) // 64))
+    for k in ("cid", "src", "dst", "live", "up", "dn"):
+        if k in d:
+            d[k] = np.zeros((B, F), d[k].dtype)
+    lo = np.zeros((B, C), np.int32)
+    hi = np.zeros((B, C), np.int32)
+    cnt_s = np.zeros((B, C, P), np.float32)
+    cnt_r = np.zeros((B, C, P), np.float32)
+    for b in range(B):
+        w = rng.integers(1, 7, C)
+        w[0] = wide
+        hi[b] = np.cumsum(w)
+        lo[b] = hi[b] - w
+        n = int(hi[b, -1])
+        d["cid"][b, :n] = np.repeat(np.arange(C), w)
+        d["cid"][b, n:] = C - 1
+        d["src"][b] = rng.integers(0, P, F)
+        d["dst"][b] = rng.integers(0, P, F)
+        d["active"][b, 0] = True
+        d["live"][b, :n] = d["active"][b][d["cid"][b, :n]] \
+            & (rng.uniform(size=n) < 0.9)
+        lv = d["live"][b]
+        np.add.at(cnt_s[b], (d["cid"][b][lv], d["src"][b][lv]), 1.0)
+        np.add.at(cnt_r[b], (d["cid"][b][lv], d["dst"][b][lv]), 1.0)
+    d.update(flow_lo=lo, flow_hi=hi, cnt_s=cnt_s, cnt_r=cnt_r)
+    if hpl:
+        Lf = -(-P // hpl)
+        ls, ld = d["src"] // hpl, d["dst"] // hpl
+        d["up"] = np.where(ls != ld, ls, Lf).astype(np.int32)
+        d["dn"] = np.where(ls != ld, ld, Lf).astype(np.int32)
+        cx = np.zeros((B, C, 2 * Lf + 2), np.float32)
+        for b in range(B):
+            lv = d["live"][b]
+            np.add.at(cx[b], (d["cid"][b][lv], d["up"][b][lv]), 1.0)
+            np.add.at(cx[b], (d["cid"][b][lv], Lf + 1 + d["dn"][b][lv]),
+                      1.0)
+        d["cnt_x"] = np.concatenate([cx[..., :Lf], cx[..., Lf + 1:-1]], -1)
+    args, kw = _walk_inputs(d, hpl, "flow", cuda)
+    args[4] = torch.full_like(args[4], 0.01)   # above the wide one's MADD
+    want = _walk_equal(args, kw)
+    assert not want[1][:, 0].any()          # the wide coflow is missed
+    assert want[3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["flow", "coflow", "admit"])
+@pytest.mark.parametrize("P,hpl,C", [(200, 0, 256), (180, 4, 256),
+                                     (4096, 0, 24)])
+def test_walk_kernel_above_register_width(cuda, P, hpl, C, mode):
+    """W = 400, 450 and 8192 (MAX_COLUMNS) columns, above the 384 a warp
+    keeps in registers: the instance with the capacity in shared memory,
+    and at 8192 a ring of one stage."""
+    d = random_tick_inputs(3, C, P, seed=P + hpl, params=UNIT,
+                           hosts_per_leaf=hpl)
+    args, kw = _walk_inputs(d, hpl, mode, cuda)
+    assert args[2].shape[-1] > 384
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["flow", "coflow", "admit"])
+def test_walk_kernel_lanes_with_different_n_live(cuda, mode):
+    """Lanes at n_live 0, 3, and all their live coflows, in one call."""
+    d = random_tick_inputs(4, 512, 150, seed=8, params=UNIT)
+    args, kw = _walk_inputs(d, 0, mode, cuda)
+    n_live = args[1].clone()
+    n_live[0], n_live[1] = 0, 3
+    args[1] = n_live
+    want = _walk_equal(args, kw)
+    assert not want[1][0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["flow", "admit"])
+def test_walk_kernel_many_coflows(cuda, mode):
+    """C = 4200 coflows: the walk's prefix outgrows shared memory and
+    lives in the wrapper's scratch."""
+    d = random_tick_inputs(2, 4200, 6, seed=3, params=UNIT, max_width=2)
+    args, kw = _walk_inputs(d, 0, mode, cuda)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+def test_walk_kernel_unaligned_rows(cuda):
+    """cnt at a base 4 bytes past a 16-byte boundary: the loader warps'
+    plain loads read the rows at any float-aligned address."""
+    d = random_tick_inputs(3, 512, 150, seed=9, params=UNIT)
+    args, kw = _walk_inputs(d, 0, "coflow", cuda)
+    cnt = args[2]
+    buf = torch.empty(cnt.numel() + 1, device=cuda)
+    moved = buf[1:].view(cnt.shape)
+    moved.copy_(cnt)
+    assert moved.data_ptr() % 16 and moved.is_contiguous()
+    args[2] = moved
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lf", [38, 0])
+def test_maxmin_kernel_every_flow_a_candidate(cuda, Lf):
+    """All 30,016 flows of each lane are candidates: the list outgrows
+    shared memory and lives in the wrapper's scratch."""
+    args = random_maxmin_inputs(2, 150, Lf, 30016, seed=31, cand_frac=1.0,
+                                device=cuda)
+    got = _maxmin(args)
+    want = _maxmin(args, force="ref")
+    torch.cuda.synchronize()
+    assert got.all() if Lf == 0 else got.any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lf", [38, 0])
+def test_maxmin_kernel_exhausted_and_negative_rows(cuda, Lf):
+    """Rows at -0, +0 and below 0 (as admission rounding leaves them)."""
+    args = random_maxmin_inputs(4, 150, Lf, 4096, seed=37 + Lf,
+                                cand_frac=0.3, device=cuda)
+    args["avail"][:, :3] = torch.tensor([-0.0, 0.0, -1.19e-7], device=cuda)
+    if Lf:
+        args["avail"][:, 300:302] = torch.tensor([-0.0, -1.19e-7],
+                                                 device=cuda)
+    got = _maxmin(args)
+    want = _maxmin(args, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 # ---- K4, the SSD chunked scan, and the Mamba2 serve path ---------------
 
 SSD_SHAPES = [(1, 16, 1, 1, 8, 8, 8), (2, 64, 4, 2, 16, 32, 16),
