@@ -17,7 +17,10 @@ against its plain PyTorch version on the same inputs:
    started together) and print nvcc's register and shared-memory
    report and the build time;
 2. K1 (LCoF contention) against its plain version, exact, at Table 2's
-   shapes (B=1, C=2048 and 4096, P=512), f32 and bf16;
+   shapes (B=1, C=2048 and 4096, P=512), f32 and bf16, with its time
+   beside the plain version's, one bf16 matmul form's and the bound
+   (`contention_bound_ms`: bytes, and the fewer word operations of the
+   pairwise and the port-major forms for these inputs);
 3. one chunk of 128 event steps of each path under
    `torch.cuda.set_sync_debug_mode("error")`: the tick loop makes no
    host synchronization;
@@ -34,7 +37,10 @@ against its plain PyTorch version on the same inputs:
    against the tick with the plain versions (order, queue, contention,
    expiry and admission exact; rates to rtol 1e-6), and K1's and K2's
    time at the main path's shapes beside the plain version, the bound
-   and (K1) one PyTorch call computing the same function; K2's chain
+   and (K1) one PyTorch call computing the same function; K1 on the
+   main path's bool incidence and on its f32 cast, with the CUDA
+   launches one call makes (`cuda_launches`) and the host time one call
+   takes to queue (`host_us`); K2's chain
    (`walk_chain`): the busiest lane's dependent steps and the measured
    ns per step;
 7. the leaf-spine main path: the same fleet under `LeafSpine(4, 4.0,
@@ -54,7 +60,8 @@ against its plain PyTorch version on the same inputs:
    N = 128, lc = 128), f32 and bf16, plus the two-half state chaining,
    at the reference's bar (atol 5e-4 scaled by max|y| at the serve
    shape, rtol 1e-3, one bf16 rounding step more for a bf16 y); K4's
-   time at the serve shape beside the plain version's and the bound;
+   time at the serve shape beside the plain version's and the bound, and
+   at B = 1 with the CUDA launches one call makes;
 11. full-width whole-path parity (`golden_parity`): Mamba2-1.3B at its
    published width, 2 layers, f32, weights from `numpy_params(cfg,
    seed=0)` served by `ServeSession(model=...)`, 2 prompts of 300 tokens
@@ -230,11 +237,66 @@ def contention_library(a_s, a_r, active):
     return torch.where(active, k, 0)
 
 
-def contention_bound_ms(B, C, P, elt):
-    W2 = 2 * ((P + 31) // 32)
-    nbytes = 2 * B * C * P * elt + B * C + 4 * B * C
-    ops = 2 * B * C * C * W2          # an AND and an OR per word pair
-    return bound(nbytes, ops)
+def contention_bound_ms(a_s, a_r, active):
+    """Bytes: both incidences and `active` read once, the int32 counts
+    written once. Operations: the fewer of two exact forms for these
+    inputs, per lane with Ca active coflows: pairwise, an AND and an OR
+    for each of 2 ceil(P/32) words of each of Ca^2 pairs; port-major,
+    ceil(Ca/32) word ORs for each port of each active coflow plus
+    ceil(Ca/32) popcounts a coflow (csrc/contention.cu's design)."""
+    B, C, P = a_s.shape
+    nbytes = 2 * B * C * P * a_s.element_size() + B * C + 4 * B * C
+    act = active.bool()
+    ca = act.sum(-1).long()
+    ports = ((a_s != 0).sum(-1) + (a_r != 0).sum(-1)) * act
+    words = (ca + 31) // 32
+    pairwise = int((2 * ca * ca * 2 * ((P + 31) // 32)).sum())
+    port_major = int((ports.sum(-1) * words + ca * words).sum())
+    return bound(nbytes, min(pairwise, port_major))
+
+
+def cuda_launches(tag, fn, reps=10):
+    """CUDA kernels one call of `fn` launches, counted by torch.profiler
+    over `reps` calls as the host's kernel-launch API calls, with the
+    APIs' names and how many kernel records the device side delivered
+    (a session late in a process can lose some of those). `fn` launches
+    at least one kernel, so the phase fails if the profiler saw no launch
+    or a count that `reps` does not divide."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    api = [e for e in rows if e.device_type != torch.autograd.DeviceType.CUDA
+           and "Launch" in e.key and "Kernel" in e.key]
+    n = sum(e.count for e in api)
+    kern = sum(e.count for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if n == 0 or n % reps:
+        fail(f"[{tag}] the profiler saw {n} kernel launches in {reps} calls")
+    return (f"{n // reps} {sorted(e.key for e in api)} ({kern} kernel "
+            f"records of {n} launches)")
+
+
+def host_us(fn, reps=200):
+    """Host microseconds one call of `fn` takes to queue its work: `reps`
+    calls back to back, no synchronization between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
 
 
 def walk_bound_ms(args, out):
@@ -907,7 +969,7 @@ def main():
                                                    force="ref"), 5)
             lib = cuda_ms(lambda: contention_library(
                 a_s.bfloat16(), a_r.bfloat16(), act), 5)
-            bnd, by = contention_bound_ms(1, C, 512, a_s.element_size())
+            bnd, by = contention_bound_ms(a_s, a_r, act)
             print(f"[2] K1 (1, {C}, 512) {str(dtype)[6:]}: exact; kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bf16 matmul "
                   f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
@@ -966,14 +1028,24 @@ def main():
     k1_plain = cuda_ms(lambda: ops.contention(*ca, force="ref"), 10)
     k1_lib = cuda_ms(lambda: contention_library(
         ca[0].bfloat16(), ca[1].bfloat16(), ca[2]), 10)
-    k1_bound, k1_by = contention_bound_ms(B, C, P, ca[0].element_size())
+    k1_bound, k1_by = contention_bound_ms(*ca)
+    f32 = (ca[0].float(), ca[1].float(), ca[2])
+    if not torch.equal(ops.contention(*f32), ops.contention(*ca)):
+        fail("[6] K1 on the f32 incidence differs from the main path's")
+    k1_f32 = cuda_ms(lambda: ops.contention(*f32), 50)
+    k1_f32_bound, _ = contention_bound_ms(*f32)
+    k1_calls = cuda_launches("6", lambda: ops.contention(*ca))
+    k1_host = host_us(lambda: ops.contention(*ca))
     walk_out = ops.tick_walk(*wa, **wk)
     k2_ms = cuda_ms(lambda: ops.tick_walk(*wa, **wk), 20)
     k2_plain = host_ms(lambda: ops.tick_walk(*wa, **wk, force="ref"))
     k2_bound, k2_by = walk_bound_ms(wa, walk_out)
-    print(f"[6] K1 at ({B}, {C}, {P}): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain:.4f} ms, bf16 matmul {k1_lib:.4f} ms, bound "
-          f"{k1_bound:.5f} ms ({k1_by})")
+    print(f"[6] K1 at ({B}, {C}, {P}) {str(ca[0].dtype)[6:]} (the main "
+          f"path's incidence): kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} "
+          f"ms, bf16 matmul {k1_lib:.4f} ms, bound {k1_bound:.5f} ms "
+          f"({k1_by}); as f32: kernel {k1_f32:.4f} ms, bound "
+          f"{k1_f32_bound:.5f} ms; host {k1_host:.2f} us a call; CUDA "
+          f"launches a call: {k1_calls}")
     k2_steps, k2_lane, k2_parts = walk_chain(wa, walk_out, False)
     print(f"[6] K2 at ({B}, {C}, {wa[2].shape[2]}), n_live "
           f"{int(wa[1].sum())}: kernel {k2_ms:.4f} ms, plain "
@@ -1091,6 +1163,14 @@ def main():
               f"kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, bound "
               f"{bnd:.4f} ms ({by}); library: null (no single PyTorch "
               f"call computes the SSD scan)")
+    one = (1,) + SSD_SERVE[1:]
+    k4_one = ssd_inputs(one, torch.bfloat16, 7, dev)
+    bnd, by = ssd_bound_ms(one, 2)
+    print(f"[10] K4 at B = 1 {one} bfloat16: kernel "
+          f"{cuda_ms(lambda: ops.ssd_scan(*k4_one, lc=one[-1]), 20):.4f} "
+          f"ms, bound {bnd:.4f} ms ({by}); CUDA launches a call: "
+          f"{cuda_launches('10', lambda: ops.ssd_scan(*k4_one, lc=one[-1]))}")
+    del k4_one
 
     # ---- 11. Mamba2 full-width parity with the JAX package -------------
     golden_parity("11", SERVE_ARCH, MAMBA_GOLDEN, "ssd_scan",

@@ -233,7 +233,7 @@ def tick_core(state: CoordState, batch: CoflowBatch, now: torch.Tensor,
 
     # LCoF contention (CUDA kernel on the card)
     pos_s, pos_r = batch.cnt_s > 0, batch.cnt_r > 0
-    k = ops.contention(pos_s.to(F32), pos_r.to(F32), act, force=force)
+    k = ops.contention(pos_s, pos_r, act, force=force)
 
     # order: expired first (by deadline), then (queue, k, stability,
     # arrival); coflows with no live ports and inactive coflows last, so

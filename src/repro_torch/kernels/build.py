@@ -45,15 +45,19 @@ SOURCES = {
 _loaded: dict = {}
 
 
-def checked(t, name: str, shape, dtype, device):
-    """`t` made contiguous, after checking that it has the shape, dtype
-    and device a kernel's C interface expects (a raw pointer carries
-    none of them); raises ValueError otherwise."""
+def check(t, name: str, shape, dtype, device) -> None:
+    """Raise ValueError unless `t` has the shape, dtype and device a
+    kernel's C interface expects (a raw pointer carries none of them)."""
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
             or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
+
+
+def checked(t, name: str, shape, dtype, device):
+    """`t` made contiguous, after `check`."""
+    check(t, name, shape, dtype, device)
     return t.contiguous()
 
 
@@ -125,5 +129,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "checked", "load",
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "check", "checked", "load",
            "library_path", "nvcc_path"]

@@ -32,7 +32,8 @@ def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
 
 
 def contention(a_send, a_recv, active, *, force: Optional[str] = None):
-    """(B, C, P) incidence x2 + (B, C) active -> (B, C) int32 k_c."""
+    """(B, C, P) f32, bf16 or bool incidence x2 + (B, C) active ->
+    (B, C) int32 k_c."""
     if _use_kernel(a_send, force):
         return _contention.contention_cuda(a_send, a_recv, active)
     return contention_ref(a_send, a_recv, active)
@@ -67,19 +68,12 @@ def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
     """Mamba-2 SSD chunked scan, any L: x (B, L, H, Dh), dt (B, L, H),
     a (H,), b and c (B, L, G, N), init_state (B, H, Dh, N) or None ->
     (y in x's dtype, final state f32); see `ref.ssd_chunked_ref`. On
-    CUDA, L is padded with zeros to a multiple of `lc` (dt = 0 in the
-    pad leaves the state unchanged), K4 runs, and y is sliced back."""
+    CUDA, K4 reads rows past the last chunk's end as zeros (the
+    reference's padding) and takes x, b and c through their strides."""
     if not _use_kernel(x, force):
         return ssd_chunked_ref(x, dt, a, b, c, init_state=init_state,
                                lc=lc)
-    L = x.shape[1]
-    pad = (-L) % lc
-    if pad:
-        x, dt, b, c = (torch.nn.functional.pad(
-            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, b, c))
-    y, state = _ssd.ssd_scan_cuda(x, dt, a, b, c, init_state=init_state,
-                                  lc=lc)
-    return (y[:, :L] if pad else y), state
+    return _ssd.ssd_scan_cuda(x, dt, a, b, c, init_state=init_state, lc=lc)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,

@@ -162,6 +162,45 @@ def test_contention_kernel_all_inactive(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,C,P", [(2, 130, 150), (16, 528, 150),
+                                   (1, 4096, 512)])
+def test_contention_kernel_bool_incidence(cuda, B, C, P):
+    """The coordinator's bool incidence (no cast to f32) gives the counts
+    of the f32 incidence and of the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(C + P)
+    a_s = (torch.rand(B, C, P, generator=g) < 0.05).to(cuda)
+    a_r = (torch.rand(B, C, P, generator=g) < 0.05).to(cuda)
+    act = (torch.rand(B, C, generator=g) < 0.7).to(cuda)
+    got = ops.contention(a_s, a_r, act)
+    assert torch.equal(got, ops.contention(a_s.float(), a_r.float(), act))
+    assert torch.equal(got, ops.contention(a_s, a_r, act, force="ref"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bool])
+def test_contention_kernel_dense_coflow(cuda, dtype):
+    """A coflow on every port, beside sparse ones and inactive ones, in
+    lanes of C no multiple of 32 and P > 32: every active coflow counts
+    the dense one, and the dense one counts every active coflow with a
+    port."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B, C, P = 3, 300, 150
+    a_s = torch.rand(B, C, P, generator=g) < 0.02
+    a_r = torch.rand(B, C, P, generator=g) < 0.02
+    act = torch.rand(B, C, generator=g) < 0.8
+    a_s[:, 7], a_r[:, 7], act[:, 7] = True, True, True
+    a_s[:, 11], a_r[:, 11], act[:, 11] = True, True, False
+    a_s, a_r, act = (t.to(cuda) for t in (a_s.to(dtype), a_r.to(dtype),
+                                          act))
+    got = ops.contention(a_s, a_r, act)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.contention(a_s, a_r, act, force="ref"))
+    has_port = (a_s.bool().any(-1) | a_r.bool().any(-1)) & act
+    assert torch.equal(got[:, 7], (has_port.sum(1) - 1).to(torch.int32))
+    assert (got[:, 11] == 0).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("flows", [True, False])
 @pytest.mark.parametrize("B,C,P", [(4, 64, 6), (3, 512, 150)])
 def test_tick_kernels_match_plain(cuda, B, C, P, flows):
@@ -605,6 +644,81 @@ def test_ssd_kernel_large_decay_is_finite(cuda):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     assert_ssd_close(y, y_ref)
     assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,Dh,N,lc", [(1, 1024, 64, 1, 64, 128, 128),
+                                             (1, 300, 4, 2, 40, 128, 128),
+                                             (2, 100, 3, 1, 8, 16, 32)])
+def test_ssd_kernel_one_batch_row_and_partial_columns(cuda, B, L, H, G, Dh,
+                                                      N, lc, dtype):
+    """B = 1 at the serve heads, and head widths no multiple of the
+    kernel's column slice (Dh = 40, 8) with a ragged last chunk."""
+    args = ssd_inputs(B, L, H, G, Dh, N, seed=L + Dh, dtype=dtype,
+                      device=cuda)
+    y, s = ops.ssd_scan(*args, lc=lc)
+    y_ref, s_ref = ops.ssd_scan(*args, lc=lc, force="ref")
+    torch.cuda.synchronize()
+    scale = float(y_ref.float().abs().max()) if B * L >= 1024 else 1.0
+    assert_ssd_close(y, y_ref, atol=5e-4 * scale)
+    assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, b and c as the Mamba mixer passes them: views of one (B, L,
+    channels) tensor, with a time-step stride of the channel count,
+    read in place (no copy) and equal to the same scan on contiguous
+    copies; an init_state besides."""
+    B, L, H, Dh, G, N = 2, 200, 4, 16, 2, 32
+    rng = np.random.default_rng(11)
+    conv = torch.as_tensor(rng.normal(size=(B, L, H * Dh + 2 * G * N)),
+                           dtype=torch.float32, device=cuda)
+    x = conv[..., :H * Dh].reshape(B, L, H, Dh)
+    b = conv[..., H * Dh:H * Dh + G * N].reshape(B, L, G, N)
+    c = conv[..., H * Dh + G * N:].reshape(B, L, G, N)
+    assert x.stride(1) == conv.shape[-1] and not x.is_contiguous()
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, size=(B, L, H)),
+                         dtype=torch.float32, device=cuda)
+    a = torch.as_tensor(-rng.uniform(0.3, 2.0, size=H), dtype=torch.float32,
+                        device=cuda)
+    s0 = torch.as_tensor(rng.normal(size=(B, H, Dh, N)), dtype=torch.float32,
+                         device=cuda)
+    y, s = ops.ssd_scan(x, dt, a, b, c, init_state=s0, lc=64)
+    y_c, s_c = ops.ssd_scan(x.contiguous(), dt, a, b.contiguous(),
+                            c.contiguous(), init_state=s0, lc=64)
+    y_ref, s_ref = ops.ssd_scan(x, dt, a, b, c, init_state=s0, lc=64,
+                                force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_c) and torch.equal(s, s_c)
+    assert_ssd_close(y, y_ref)
+    assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_cuda_launches_per_call(cuda):
+    """One call of `ops.ssd_scan` counts once in `launch_counts` and runs
+    two CUDA kernels (c b^T once per group, then the scan), and nothing
+    else: no pad, copy or slice around them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = ssd_inputs(4, 1000, 64, 1, 64, 128, seed=1, dtype=torch.bfloat16,
+                      device=cuda)
+    ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["ssd_scan"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.key for e in rows]
+    assert sum(e.count for e in rows) == 2, names
+    assert sorted("ssd_gram" in n for n in names) == [False, True], names
+    assert all("ssd_" in n for n in names), names
 
 
 @pytest.mark.gpu
