@@ -9,8 +9,10 @@ full-width trace) through the Saath coordinator tick, first on the big
 switch, then on a 4:1 leaf-spine fabric with the max-min work-
 conservation fill; then through `repro_torch.launch.lm_serve.
 ServeSession` Mamba2-1.3B and StarCoder2-3B at their published widths
-and depths — and holds each hand-written CUDA kernel of those paths
-against its plain PyTorch version on the same inputs:
+and depths; then the same 16 traces streamed online into a
+`repro_torch.api.SessionPool`, and a leaf-spine pool — and holds each
+hand-written CUDA kernel of those paths against its plain PyTorch
+version on the same inputs:
 
 1. the card's name and power limit; build the five kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -21,7 +23,8 @@ against its plain PyTorch version on the same inputs:
    beside the plain version's, one bf16 matmul form's and the bound
    (`contention_bound_ms`: bytes, and the fewer word operations of the
    pairwise and the port-major forms for these inputs);
-3. one chunk of 128 event steps of each path under
+3. one chunk of 128 event steps of each path, and one chunk of 32
+   session steps (the `n_end`-capped branch of the tick), under
    `torch.cuda.set_sync_debug_mode("error")`: the tick loop makes no
    host synchronization;
 4. the big-switch main path: the 16-trace fleet through `run(Scenario(
@@ -102,13 +105,36 @@ against its plain PyTorch version on the same inputs:
    bf16 pair (`bf16_pair`): StarCoder2-3B at full width, 2 layers, bf16,
    weights from `numpy_params(cfg, seed=0)`, a prefill of 4 x 2000
    tokens and 8 teacher-forced decode steps with the plain attention
-   and with K5, logits to atol 0.1 (the bf16 bar of ROADMAP C5).
+   and with K5, logits to atol 0.1 (the bf16 bar of ROADMAP C5);
+16. the online serving plane (`pool_main_path`): `SessionPool(
+   SchedulerParams(), num_ports=150, max_sessions=16)` on the card,
+   tenant i streaming phase 4's trace i (every coflow arriving before
+   the new clock submitted before each `pool.advance(16 δ)`), then
+   drained in 1 s advances through `pool.advance` and `pool.poll`, with
+   the counters set to 0 just before and read just after: every
+   tenant's per-coflow CCTs equal phase 4's offline replay bit for bit,
+   every coflow completes once, K1 = K2 = the event steps the session
+   loops ran (discarded steps included), K3 = K4 = K5 = 0, full uploads
+   = capacity growths + 1, and an advance with no dirty row uploads no
+   byte; advances, event steps, flag reads, wall seconds, wall ms per
+   advance (median, p99) and peak device memory. Then the δ budget: a
+   one-row pool on trace 0 streamed to the arrival of its 100th
+   coflow, then 200 advances of one δ, wall ms per advance and its
+   event steps printed beside δ = 8 ms (no gate);
+17. the leaf-spine pool (`leafspine_pool`): 4 tenants on phase 8's
+   parity shape, fb_like_trace(48, 150, seed=0..3), under
+   `LeafSpine(4, 4.0, "maxmin")`, streamed as in 16, bit for bit the
+   port's offline `run` of the same traces on the card, K1 = K2 = K3 =
+   the event steps; a fifth tenant under the Aalo-queue ablation
+   (`per_flow_threshold=False`) against its offline replay at ROADMAP
+   C2's bar (rtol 1e-2, atol 2δ: its float byte sums round by the
+   slab's padding).
 
 Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-four main-path runs, split by path in `launches_by_path`), the
+six main-path runs, split by path in `launches_by_path`), the
 nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
 without a CUDA device.
@@ -167,6 +193,8 @@ TIE_GAP = 1e-3       # a greedy token may differ where top-2 is this close
 LOGIT_ATOL = 2e-3    # the JAX package's prefill bar (test_arch_smoke.py)
 BF16_LOGIT_ATOL = 0.1  # the bf16 logit bar (ROADMAP C5)
 PAIR_STEPS = 8       # teacher-forced decode steps of the bf16 pair
+POOL_DRAIN = 1.0     # seconds a drain advance of phases 16-17 moves
+DELTA_ADVANCES = 200  # one-δ advances of phase 16's budget run
 
 
 def fail(msg):
@@ -922,6 +950,259 @@ def bf16_pair(tag, arch, batch, prompt_len, kernel):
              f"plain path's")
 
 
+class PoolStream:
+    """Tenants of `pool` streaming `traces`, one trace a tenant (admitted
+    with `tenant_kw[i]` where given). Each `advance(dt)` submits every
+    coflow whose arrival falls before the new clock, calls
+    `pool.advance(dt)` and `pool.poll()`, synchronizes, and records its
+    wall ms, the event steps its session loops ran (a spy on
+    `engine.session_advance`) and where the wall went (`parts`, seconds:
+    submits, the slab flush `pool._ensure` with its gathers, re-packs
+    and scatters, the session loops, the polls). It fails if a coflow
+    completes twice or if an advance with no dirty row uploads a
+    byte."""
+
+    def __init__(self, tag, pool, traces, tenant_kw=()):
+        import numpy as np
+
+        self.tag, self.pool = tag, pool
+        self.rows = [pool.session(**dict(tenant_kw[i] if i < len(tenant_kw)
+                                         else {}))
+                     for i in range(len(traces))]
+        self.queues = [sorted(tr.coflows, key=lambda c: (c.arrival, c.cid))
+                       for tr in traces]
+        self.cids = [{} for _ in traces]       # live handle -> cid
+        self.cct = [np.full(len(tr.coflows), np.nan) for tr in traces]
+        self.submitted = 0                     # coflows of tenant 0 in
+        self.steps, self.walls, self.step_counts = 0, [], []
+        self.growths = 0
+        self.parts = dict(submit=0.0, flush=0.0, loop=0.0, poll=0.0)
+        ensure = pool._ensure
+
+        def timed_ensure():
+            t = time.perf_counter()
+            ensure()
+            self.parts["flush"] += time.perf_counter() - t
+
+        pool._ensure = timed_ensure
+
+    def advance(self, dt):
+        import torch
+
+        from repro_torch.fabric import engine as eng
+
+        t0 = time.perf_counter()
+        clock = self.rows[0].now + dt
+        dirty = False
+        for i, (s, q) in enumerate(zip(self.rows, self.queues)):
+            while q and q[0].arrival < clock:
+                c = q.pop(0)
+                self.cids[i][s.submit([c])[0]] = c.cid
+                self.submitted += i == 0
+                dirty = True
+        pool, real, ran = self.pool, eng.session_advance, [0]
+        t1 = time.perf_counter()
+        self.parts["submit"] += t1 - t0
+
+        def spy(*a, **kw):
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            self.parts["loop"] += time.perf_counter() - t
+            ran[0] += out[1]
+            return out
+
+        up, caps = pool.io["upload_bytes"], (pool._C_cap, pool._F_cap)
+        built = pool._tb is not None
+        eng.session_advance = spy
+        try:
+            pool.advance(dt)
+        finally:
+            eng.session_advance = real
+        t2 = time.perf_counter()
+        for s, d in pool.poll():
+            i = self.rows.index(s)
+            c = self.cids[i].pop(d.handle, None)
+            if c is None:
+                fail(f"[{self.tag}] tenant {i}: coflow {d.handle} "
+                     f"completed twice")
+            self.cct[i][c] = d.cct
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        self.parts["poll"] += t3 - t2
+        self.walls.append(1e3 * (t3 - t0))
+        self.steps += ran[0]
+        self.step_counts.append(ran[0])
+        self.growths += built and caps != (pool._C_cap, pool._F_cap)
+        if not dirty and pool.io["upload_bytes"] != up:
+            fail(f"[{self.tag}] an advance with no dirty row uploaded "
+                 f"{pool.io['upload_bytes'] - up} bytes")
+
+    def stream(self, dt, until=None):
+        """Advance by `dt` until every coflow is in (or tenant 0 has
+        submitted `until`)."""
+        while any(self.queues) and (until is None
+                                    or self.submitted < until):
+            self.advance(dt)
+
+    def drain(self, step):
+        """Advance by `step` until every tenant is empty; every coflow
+        must have completed exactly once with a positive CCT."""
+        import numpy as np
+
+        while any(s.num_live for s in self.rows):
+            self.advance(step)
+        for i, c in enumerate(self.cct):
+            if not (np.isfinite(c) & (c > 0)).all():
+                fail(f"[{self.tag}] tenant {i}: a coflow did not complete "
+                     f"with a positive CCT")
+
+
+def pool_main_path(tag, fleet, params, offline):
+    """Phase 16: `SessionPool(params, num_ports=PORTS, max_sessions=16)`
+    on the card, tenant i streaming `fleet[i]` in 16 δ advances, then
+    draining in POOL_DRAIN s advances, with every launch counter set to
+    0 just before and read just after. Every tenant's per-coflow CCTs
+    must equal `offline`'s lane (phase 4's replay) bit for bit; K1 = K2
+    = the event steps the session loops ran, K3 = K4 = K5 = 0; full
+    uploads = capacity growths + 1. Then the δ budget: a one-row pool on
+    `fleet[0]` streamed to the arrival of its 100th coflow, then 200
+    advances of one δ. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SessionPool
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pool = SessionPool(params, num_ports=PORTS, max_sessions=len(fleet))
+    st = PoolStream(tag, pool, fleet)
+    st.stream(16 * params.delta)
+    n_stream = len(st.walls)
+    st.drain(POOL_DRAIN)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = np.array(st.walls)
+    io = pool.io
+    print(f"[{tag}] SessionPool, {len(fleet)} tenants x fb_like_trace("
+          f"{COFLOWS}, {PORTS}): {len(walls)} advances ({n_stream} of 16 δ "
+          f"while streaming, then {POOL_DRAIN} s), event steps {st.steps}, "
+          f"flag reads {io['loop_reads']}, wall {wall:.3f} s, wall per "
+          f"advance median {np.median(walls):.3f} ms p99 "
+          f"{np.percentile(walls, 99):.3f} ms (streaming median "
+          f"{np.median(walls[:n_stream]):.3f} ms), peak device memory "
+          f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
+          f"before, launches {counts}; io {io}; slab capacities C "
+          f"{pool._C_cap} F {pool._F_cap}, {st.growths} growths")
+    k_stream = sum(st.step_counts[:n_stream])
+    print(f"[{tag}] where the wall went (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st.parts.items()) + f" (event steps "
+        f"{st.steps}, {k_stream} of them while streaming: "
+        f"{1e3 * st.parts['loop'] / max(st.steps, 1):.3f} ms of loop wall "
+        f"a step, flag reads included); offline replay (phase 4): "
+        f"{offline.events} event steps, {offline.wall_seconds:.3f} s")
+    for b, got in enumerate(st.cct):
+        want = offline.row_cct(b)
+        if not np.array_equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"[{tag}] tenant {b}: {bad} per-coflow CCTs differ from "
+                 f"the offline replay's (max |Δ| "
+                 f"{np.nanmax(np.abs(got - want)):.3e})")
+    print(f"[{tag}] every tenant's {COFLOWS} per-coflow CCTs equal phase "
+          f"4's offline replay bit for bit")
+    for name in ("contention", "tick_walk"):
+        if counts[name] != st.steps:
+            fail(f"[{tag}] {name} launched {counts[name]} times for "
+                 f"{st.steps} event steps")
+    if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
+        fail(f"[{tag}] K3, K4 or K5 ran on the big-switch pool")
+    if io["full_uploads"] != st.growths + 1:
+        fail(f"[{tag}] {io['full_uploads']} full uploads for "
+             f"{st.growths} capacity growths")
+    del pool, st
+
+    one = PoolStream(tag, SessionPool(params, num_ports=PORTS,
+                                      max_sessions=1), fleet[:1])
+    one.stream(16 * params.delta, until=100)
+    one.walls, one.step_counts = [], []
+    one.parts = dict.fromkeys(one.parts, 0.0)
+    for _ in range(DELTA_ADVANCES):
+        one.advance(params.delta)
+    w, k = np.array(one.walls), np.array(one.step_counts)
+    parts = ", ".join(f"{k_} {1e3 * v / len(w):.3f}"
+                      for k_, v in one.parts.items())
+    budget = 1e3 * params.delta
+    print(f"[{tag}] δ budget: one tenant (fb_like_trace({COFLOWS}, "
+          f"{PORTS}, seed=0)) after the arrival of its 100th coflow, "
+          f"{DELTA_ADVANCES} advances of one δ (arrivals submitted before "
+          f"each): wall per advance median {np.median(w):.3f} ms, p99 "
+          f"{np.percentile(w, 99):.3f} ms, max {w.max():.3f} ms against "
+          f"δ = {budget:.0f} ms ({int((w > budget).sum())} of {len(w)} "
+          f"over); event steps per advance median {np.median(k):.0f}, max "
+          f"{k.max()}, total {k.sum()}; mean ms an advance: {parts}; "
+          f"{smi()}")
+    return counts
+
+
+def leafspine_pool(tag, params, leaf):
+    """Phase 17: 4 tenants streaming fb_like_trace(48, 150, seed=0..3)
+    under `leaf` through a 5-row pool whose fifth tenant streams seed 0
+    under the Aalo-queue ablation; the 4 are held to the port's offline
+    `run` of the same traces on the card bit for bit, the ablation
+    tenant to its offline replay at ROADMAP C2's bar; K1 = K2 = K3 = the
+    event steps. Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.api import Scenario, SessionPool, run
+    from repro_torch.kernels import ops
+    from repro_torch.traces.synth import fb_like_trace
+
+    traces = [fb_like_trace(PARITY_COFLOWS, PORTS, seed=s)
+              for s in range(4)]
+    ablation = {"per_flow_threshold": False}
+    offline = run(Scenario(engine="torch", traces=tuple(traces),
+                           topology=leaf))
+    abl_off = run(Scenario(engine="torch", traces=(traces[0],),
+                           topology=leaf, mechanisms=ablation))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pool = SessionPool(params, num_ports=PORTS, max_sessions=5,
+                       topology=leaf)
+    st = PoolStream(tag, pool, traces + traces[:1],
+                    tenant_kw=[{}] * 4 + [{"mechanisms": ablation}])
+    st.stream(16 * params.delta)
+    st.drain(POOL_DRAIN)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[{tag}] leaf-spine SessionPool ({leaf}), 4 tenants x "
+          f"fb_like_trace({PARITY_COFLOWS}, {PORTS}) + 1 ablation tenant: "
+          f"{len(st.walls)} advances, event steps {st.steps}, flag reads "
+          f"{pool.io['loop_reads']}, wall {wall:.3f} s, launches {counts}")
+    for b in range(4):
+        if not np.array_equal(st.cct[b], offline.row_cct(b)):
+            fail(f"[{tag}] leaf-spine tenant {b}'s per-coflow CCTs differ "
+                 f"from the offline replay's")
+    want = abl_off.row_cct(0)
+    dev_abs = np.abs(st.cct[4] - want)
+    print(f"[{tag}] the 4 tenants equal the offline replay bit for bit; "
+          f"the ablation tenant against its offline replay: max |Δ CCT| "
+          f"{dev_abs.max():.3e} s, {int((dev_abs > 0).sum())} of "
+          f"{len(want)} differ (bar rtol 1e-2, atol 2δ)")
+    if not np.all(dev_abs <= 2 * params.delta + 1e-2 * np.abs(want)):
+        fail(f"[{tag}] the ablation tenant is outside C2's bar")
+    for name in ("contention", "tick_walk", "maxmin"):
+        if counts[name] != st.steps:
+            fail(f"[{tag}] {name} launched {counts[name]} times for "
+                 f"{st.steps} leaf-spine event steps")
+    if counts["ssd_scan"] or counts["flash_attention"]:
+        fail(f"[{tag}] a model kernel ran on the leaf-spine pool")
+    return counts
+
+
 def main():
     import torch
 
@@ -995,6 +1276,25 @@ def main():
         print(f"[3] 128 event steps of the fleet (topology {topo}) ran "
               f"under set_sync_debug_mode('error'): no host sync in the "
               f"tick loop")
+        # the session branch: a chunk of the slab's steps capped at a
+        # per-lane horizon, as `session_advance` runs between flag reads
+        zf = torch.zeros_like(state.sent)
+        zb = torch.zeros_like(state.t0)
+        state = eng._init_state(tb)._replace(rate=zf, pend_sent=zf,
+                                             pend_tick=zb, pend_next=zb)
+        n_end = torch.full((FLEET,), 2048.0, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = eng._session_chunk(state, tb, ep, n_end, 32,
+                                       features=feats)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not bool((state.tick > 0).all()):
+            fail("[3] the session chunk moved no lane")
+        print(f"[3] a session chunk of 32 event steps (topology {topo}) "
+              f"ran under set_sync_debug_mode('error'): the flag read "
+              f"between chunks is the session loop's only host sync")
         del state, tb
 
     # ---- 4. the big-switch main path -----------------------------------
@@ -1233,8 +1533,15 @@ def main():
                               ATTN_TOKENS, "flash_attention")
     bf16_pair("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT, "flash_attention")
 
+    # ---- 16. the pool's main path on the big switch --------------------
+    pcounts = pool_main_path("16", fleet, params, res)
+
+    # ---- 17. the leaf-spine pool ---------------------------------------
+    plcounts = leafspine_pool("17", params, leaf)
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
-             "mamba2_serve": scounts, "starcoder2_serve": acounts}
+             "mamba2_serve": scounts, "starcoder2_serve": acounts,
+             "session_bigswitch": pcounts, "session_leafspine": plcounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [

@@ -18,8 +18,17 @@ card and without that, they raise.
 
 The big switch and the leaf-spine fabric (`fabric.topology`, with the
 greedy or the max-min work-conservation fill) are ported, clairvoyant
-only: pilot sampling is ROADMAP queue A item 6, and the online-session
-branch of `_tick` is queue A item 4.
+only: pilot sampling is ROADMAP queue A item 6.
+
+The online half (reference `jax_engine.py:753-1006`) serves
+`repro_torch.api.SaathSession` and `SessionPool`: `_tick` with `n_end`
+caps every lane at its own horizon tick and resumes a capped schedule
+interval from its stored rates and anchor, `session_advance` steps a
+slab to those horizons, `session_plan_tick` runs one planning tick, and
+`scatter_rows` / `gather_rows` move single rows of the device slab.
+Where the reference loops on the device (`while_loop`), the port loops
+on the host: chunks of 1, 2, 4, ... up to `chunk` event steps, with one
+read of a one-element "lanes open" flag after each chunk.
 """
 from __future__ import annotations
 
@@ -98,7 +107,13 @@ class EngineParams(NamedTuple):
 
 
 class EngineState(NamedTuple):
-    """Per-lane replay state (every leaf has a leading lane axis)."""
+    """Per-lane replay state (every leaf has a leading lane axis).
+
+    The four trailing leaves exist only in session states (None in an
+    offline replay; reference `jax_engine.py:84-111`): the pending event
+    horizon of a schedule interval that an advance's `n_end` cap cut, so
+    that the next advance resumes the stored rates from the stored
+    anchor instead of re-evaluating the boundary tick."""
     coord: co.CoordState
     sent: torch.Tensor      # (B, F) f32 bytes
     done: torch.Tensor      # (B, F) bool
@@ -107,6 +122,10 @@ class EngineState(NamedTuple):
     cct: torch.Tensor       # (B, C) f32 completion - arrival (nan until done)
     t0: torch.Tensor        # (B,) f32 grid origin (0)
     tick: torch.Tensor      # (B,) int32 next tick index
+    rate: Optional[torch.Tensor] = None       # (B, F) f32 pending rates
+    pend_sent: Optional[torch.Tensor] = None  # (B, F) f32 sent at the anchor
+    pend_tick: Optional[torch.Tensor] = None  # (B,) f32 anchor tick
+    pend_next: Optional[torch.Tensor] = None  # (B,) f32 horizon tick (0 = none)
 
 
 class EngineResult(NamedTuple):
@@ -161,15 +180,38 @@ def _segment_max(data: torch.Tensor, seg: torch.Tensor,
     return torch.where(valid, out, 0.0)
 
 
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of trees of one structure (nested tuples and
+    NamedTuples, None leaves kept as None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        out = (tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
+
+
+def _select(lane: torch.Tensor, new, old):
+    """Per-lane `where(lane, new, old)` over every leaf of two state
+    trees, `lane` (B,) broadcast to each leaf's rank: an exact bit
+    select, NaNs included."""
+    return tree_map(lambda a, b: torch.where(
+        lane.view(-1, *(1,) * (a.dim() - 1)), a, b), new, old)
+
+
 def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
            eps_t: torch.Tensor, *, per_flow_wc: bool, with_dynamics: bool,
-           with_ablations: bool):
+           with_ablations: bool, active_gate: Optional[torch.Tensor] = None):
     """One tick's coordinator view of every lane: activation, per-(coflow,
     port) live counts, Eq. 1 m_c, on a leaf-spine batch the per-(coflow,
     link) live counts, and (when built in) the §4.3 finished-flow-median
-    inputs and the ablation's total bytes."""
+    inputs and the ablation's total bytes. `active_gate` (B,) (sessions:
+    `tick < n_end`, reference `jax_engine.py:199-220`) deactivates whole
+    lanes whose step `_tick` discards anyway, so their walks are empty."""
     active = tb.coflow_valid & ~state.finished \
         & (tb.arrival <= (now + eps_t)[:, None])
+    if active_gate is not None:
+        active = active & active_gate[:, None]
     live = active.gather(1, tb.cid) & ~state.done & tb.flow_valid
     livef = live.to(F32)
 
@@ -237,18 +279,30 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
 def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
           per_flow_wc: bool = True, with_dynamics: bool = True,
           with_ablations: bool = False,
-          wc_maxmin: bool = False) -> EngineState:
+          wc_maxmin: bool = False,
+          n_end: Optional[torch.Tensor] = None) -> EngineState:
     """Advance every lane one event step: schedule at the current δ
     tick, find the next instant the schedule could change, quantize it
     up to the δ grid, and integrate the constant rates across the jump.
-    The flags are the reference's static structure switches."""
+    The flags are the reference's static structure switches.
+
+    `n_end` (B,) f32 (sessions; reference `jax_engine.py:357-508`) caps
+    each lane at its horizon tick: the jump never passes it, a schedule
+    interval the cap cuts is stored (rates and anchor) and resumed by
+    the next step instead of re-evaluated, stopping early only at an
+    arrival submitted since the anchor, and a lane with tick >= n_end is
+    an exact no-op on every leaf. None (offline) leaves all of that out.
+    """
+    session = n_end is not None
     delta = ep.delta
     tickf = state.tick.to(F32)
     now = state.t0 + tickf * delta
     eps_t = 1e-3 * delta
+    can = tickf < n_end if session else None
     batch, flows, active, live, livef = _views(
         state, tb, now, eps_t, per_flow_wc=per_flow_wc,
-        with_dynamics=with_dynamics, with_ablations=with_ablations)
+        with_dynamics=with_dynamics, with_ablations=with_ablations,
+        active_gate=can)
     total = batch.total
     coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows,
                               wc_fill="maxmin" if wc_maxmin else "greedy")
@@ -295,14 +349,51 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
                        tickf + jump)
     # an idle lane (nothing live) jumps its gap in one step
     hi = tickf + torch.where(live.any(-1), jump, IDLE_JUMP_TICKS)
-    n_next = torch.clamp(n_ev, min=tickf + 1.0, max=hi)
+    n_un = torch.clamp(n_ev, min=tickf + 1.0, max=hi)   # uncapped horizon
 
-    # ---- integrate the constant rates across the interval -----------
-    dt = (n_next - tickf) * delta
-    adv = r_f * dt[:, None]
-    fin = served & (adv >= rem - REL_EPS * tb.size)
-    fct = torch.where(fin, nowc + rem / r_safe, state.fct)
-    sent = torch.where(fin, tb.size, torch.minimum(tb.size, state.sent + adv))
+    if not session:
+        n_next, r_use, r_use_safe, rem_a = n_un, r_f, r_safe, rem
+        anchor_t, anchor_tick, anchor_sent = now, tickf, state.sent
+        coord_new = coord
+    else:
+        cap = torch.maximum(n_end, tickf + 1.0)
+        # pending-horizon resume: keep integrating the stored rates from
+        # the stored anchor to the stored horizon, or to the δ tick of an
+        # arrival submitted since the anchor (an event the offline loop
+        # would have stopped at), instead of re-evaluating this tick
+        pend_t = state.t0 + state.pend_tick * delta
+        late = torch.where(tb.coflow_valid
+                           & (tb.arrival > (pend_t + eps_t)[:, None]),
+                           tb.arrival, inf).amin(-1)
+        late_n = torch.maximum(
+            torch.ceil((late - state.t0) / delta - 1e-4),
+            state.pend_tick + 1.0)
+        stop = torch.minimum(state.pend_next, late_n)
+        resuming = (state.pend_next > tickf) & (stop > tickf)
+        n_next = torch.where(resuming, torch.minimum(stop, cap),
+                             torch.minimum(n_un, cap))
+        r_use = torch.where(resuming[:, None], state.rate, r_f)
+        r_use_safe = r_use.clamp(min=1e-30)
+        anchor_t = torch.where(resuming, pend_t, now)
+        anchor_tick = torch.where(resuming, state.pend_tick, tickf)
+        anchor_sent = torch.where(resuming[:, None], state.pend_sent,
+                                  state.sent)
+        rem_a = tb.size - anchor_sent
+        # a resumed interval does not re-invoke the coordinator: queue
+        # moves and deadline refreshes happen only at evaluation instants
+        coord_new = _select(resuming, state.coord, coord)
+        served = live & (r_use > 0)
+
+    # ---- integrate the constant rates across the interval, anchored at
+    # the evaluation instant: an interval cut by n_end caps integrates to
+    # the same f32 values as the offline one-shot step ----------------
+    dt = (n_next - anchor_tick) * delta
+    adv = r_use * dt[:, None]
+    fin = served & (adv >= rem_a - REL_EPS * tb.size)
+    fct = torch.where(fin, anchor_t[:, None] + rem_a / r_use_safe,
+                      state.fct)
+    sent = torch.where(fin, tb.size,
+                       torch.minimum(tb.size, anchor_sent + adv))
     done = state.done | fin
 
     # coflow completions: CCT = last FCT - arrival
@@ -311,10 +402,27 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
     newly = active & (undone < 0.5)
     last_fct = _segment_max(fct * tb.flow_valid, tb.cid, tb.coflow_valid)
     cct = torch.where(newly, last_fct - tb.arrival, state.cct)
-    return EngineState(coord=coord, sent=sent, done=done, fct=fct,
-                       finished=state.finished | newly, cct=cct,
-                       t0=state.t0,
-                       tick=state.tick + (n_next - tickf).to(torch.int32))
+    tick = state.tick + (n_next - tickf).to(torch.int32)
+    if not session:
+        return EngineState(coord=coord, sent=sent, done=done, fct=fct,
+                           finished=state.finished | newly, cct=cct,
+                           t0=state.t0, tick=tick)
+    # pending bookkeeping: cleared once the interval's horizon (or the
+    # arrival stop) is reached, (re)armed when the cap cut this step's
+    # interval; the anchor leaves always describe the interval just
+    # integrated
+    hit = n_next >= torch.where(resuming, stop, n_un)
+    pend_next = torch.where(hit, 0.0,
+                            torch.where(resuming, state.pend_next, n_un))
+    new = EngineState(coord=coord_new, sent=sent, done=done, fct=fct,
+                      finished=state.finished | newly, cct=cct,
+                      t0=state.t0, tick=tick, rate=r_use,
+                      pend_sent=anchor_sent, pend_tick=anchor_tick,
+                      pend_next=pend_next)
+    # at or past its horizon a lane's step is a pure no-op: the schedule
+    # at tick n_end is evaluated by the next advance, once every arrival
+    # up to it is in the slab
+    return _select(can, new, state)
 
 
 def _run_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
@@ -484,6 +592,114 @@ def _drive(tb: TraceBatch, ep: EngineParams, max_ticks: int, chunk: int,
                         ticks=int(state.tick.max()), events=events)
 
 
+# ---- online session support (repro_torch.api.SaathSession) ------------
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array on `device`: on a card through a pinned host buffer
+    with a non-blocking copy (the caching host allocator keeps the
+    buffer until the copy has run), so that no upload stalls the
+    stream's host thread."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def scatter_rows(tree, idx: torch.Tensor, rows) -> None:
+    """Write the k stacked rows of `rows` (a tree like `tree`, leaves on
+    its device and of its dtypes) into rows `idx` (k,) of the slab
+    `tree` in place (reference `jax_engine.py:753-773`): the pool's
+    dirty-row upload. Rows are distinct, so `index_copy_` is exact."""
+    tree_map(lambda a, u: a.index_copy_(0, idx, u), tree, rows)
+
+
+def gather_rows(tree, idx: torch.Tensor):
+    """Rows `idx` of a slab tree (reference `jax_engine.py:776-782`):
+    the download half of the pool's row contract."""
+    return tree_map(lambda a: a.index_select(0, idx), tree)
+
+
+def _session_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams,
+                   n_end: torch.Tensor, steps: int, *,
+                   features: tuple) -> EngineState:
+    """`steps` session event steps of every lane, with no host read."""
+    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
+    for _ in range(steps):
+        state = _tick(state, tb, ep, per_flow_wc=per_flow_wc,
+                      with_dynamics=with_dynamics,
+                      with_ablations=with_ablations, wc_maxmin=wc_maxmin,
+                      n_end=n_end)
+    return state
+
+
+def _lanes_open(state: EngineState, n_end: torch.Tensor) -> torch.Tensor:
+    """Device bool: some lane is short of its horizon with a real coflow
+    unfinished (reference `_session_while`'s loop condition)."""
+    closed = (state.tick.to(F32) >= n_end) | state.finished.all(-1)
+    return ~closed.all()
+
+
+def session_advance(state: EngineState, tb: TraceBatch, ep: EngineParams,
+                    *, n_end, chunk: int = 32,
+                    features: tuple = (True, True, False, False),
+                    max_steps: int = 10_000_000):
+    """Step a session slab until every lane has reached its tick horizon
+    `n_end` (a scalar or a (B,) host array of slab-relative ticks) or
+    finished all its real coflows; a lane at its horizon is an exact
+    no-op (reference `session_advance`, `jax_engine.py:914-965`, with
+    `_session_while`, `:814-847`). `ep` carries a leading (B,) row axis.
+
+    The loop runs on the host: chunks of 1, 2, 4, ... up to `chunk`
+    event steps (a δ-cadence advance usually needs one or two), each
+    followed by one read of the "lanes open" flag, the loop's only host
+    synchronization. Returns (state, event steps run, flag reads);
+    raises past `max_steps` event steps."""
+    B = state.tick.shape[0]
+    ne = np.broadcast_to(np.asarray(n_end, np.float32), (B,)).copy()
+    ne = host_to_device(ne, state.tick.device)
+    steps = reads = 0
+    n = 1
+    while steps < max_steps:
+        k = min(n, chunk, max_steps - steps)
+        state = _session_chunk(state, tb, ep, ne, k, features=features)
+        steps += k
+        reads += 1
+        if not bool(_lanes_open(state, ne)):
+            return state, steps, reads
+        n *= 2
+    raise RuntimeError(
+        f"session_advance exceeded {max_steps} event steps before "
+        f"reaching its tick horizon (check the slab)")
+
+
+def session_plan_tick(state: EngineState, tb: TraceBatch,
+                      ep: EngineParams, *,
+                      features: tuple = (True, False, False, False),
+                      row_mask: Optional[np.ndarray] = None):
+    """One coordinator tick on the slab without integrating rates, the
+    wave-planning mode (reference `jax_engine.py:968-1006`). Rows outside
+    `row_mask` (B,) are exact no-ops and admit nothing; a planning row's
+    pending capped interval is dropped. Returns (state with the post-tick
+    coordinator carry and tick + 1, admitted (B, C) bool)."""
+    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
+    tickf = state.tick.to(F32)
+    now = state.t0 + tickf * ep.delta
+    eps_t = 1e-3 * ep.delta
+    batch, flows, _, _, _ = _views(
+        state, tb, now, eps_t, per_flow_wc=per_flow_wc,
+        with_dynamics=with_dynamics, with_ablations=with_ablations)
+    coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows,
+                              wc_fill="maxmin" if wc_maxmin else "greedy")
+    new = state._replace(coord=coord, tick=state.tick + 1)
+    if state.pend_next is not None:
+        new = new._replace(pend_next=torch.zeros_like(state.pend_next))
+    B = state.tick.shape[0]
+    mask = np.ones(B, bool) if row_mask is None else np.asarray(row_mask,
+                                                                  bool)
+    mask = host_to_device(mask, state.tick.device)
+    return _select(mask, new, state), out["admitted"] & mask[:, None]
+
+
 def _leaf(x, device, dtype):
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
 
@@ -496,12 +712,13 @@ def from_reference(tb, params, state=None, *, device=None):
     `params` an EngineParams-like (fields `dp`, `delta`) whose `dp` has
     DynCoordParams' fields; `state` optionally an offline EngineState-
     like (fields coord{queue, deadline, running}, sent, done, fct,
-    finished, cct, t0, tick). Leaves may be numpy or anything
-    `np.asarray` reads. Returns (tb, params, state) on `device`, with
-    `params` broadcast to the batch's lanes and `state` None when none
-    was given. Big-switch and leaf-spine batches are carried; raises for
-    the parts of the reference not ported yet (pilot sampling, session
-    states)."""
+    finished, cct, t0, tick), with or without the session leaves (rate,
+    pend_sent, pend_tick, pend_next: a `SessionPool.host_view()` state).
+    Leaves may be numpy or anything `np.asarray` reads. Returns (tb,
+    params, state) on `device`, with `params` broadcast to the batch's
+    lanes and `state` None when none was given. Big-switch and
+    leaf-spine batches are carried; raises for pilot sampling, which is
+    not ported yet."""
     dev = resolve_device(device)
     if getattr(tb, "pilot", None) is not None:
         raise NotImplementedError(
@@ -520,11 +737,14 @@ def from_reference(tb, params, state=None, *, device=None):
     t_ep = EngineParams(t_dp, _leaf(params.delta, dev, F32)).lanes(B)
     t_state = None
     if state is not None:
-        if getattr(state, "rate", None) is not None:
-            raise NotImplementedError(
-                "session states (pending horizons) are ROADMAP queue A "
-                "item 4")
         c = state.coord
+        session = {}
+        if getattr(state, "rate", None) is not None:
+            session = dict(
+                rate=_leaf(state.rate, dev, F32),
+                pend_sent=_leaf(state.pend_sent, dev, F32),
+                pend_tick=_leaf(state.pend_tick, dev, F32),
+                pend_next=_leaf(state.pend_next, dev, F32))
         t_state = EngineState(
             coord=co.CoordState(_leaf(c.queue, dev, torch.int64),
                                 _leaf(c.deadline, dev, F32),
@@ -535,10 +755,13 @@ def from_reference(tb, params, state=None, *, device=None):
             finished=_leaf(state.finished, dev, torch.bool),
             cct=_leaf(state.cct, dev, F32),
             t0=_leaf(state.t0, dev, F32).expand(B).contiguous(),
-            tick=_leaf(state.tick, dev, torch.int32).expand(B).contiguous())
+            tick=_leaf(state.tick, dev, torch.int32).expand(B).contiguous(),
+            **session)
     return t_tb, t_ep, t_state
 
 
 __all__ = ["EngineParams", "EngineState", "EngineResult",
            "default_max_ticks", "features_for", "from_reference",
-           "resolve_device", "simulate_batch", "simulate_sweep"]
+           "gather_rows", "host_to_device", "resolve_device",
+           "scatter_rows", "session_advance", "session_plan_tick",
+           "simulate_batch", "simulate_sweep", "tree_map"]

@@ -192,11 +192,15 @@ def blank_row(tb: TraceBatch, b: int) -> None:
 
 
 def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
-             topology=None) -> None:
+             arrival_rank=None, topology=None) -> None:
     """Write one FlowTable into row `b` in place (blanking it first),
     recomputing the row's host-side permutations and segment layouts,
-    and the link layout when `topology` is a `LeafSpine`. Raises when
-    the row's capacities cannot hold the table."""
+    and the link layout when `topology` is a `LeafSpine`.
+    `arrival_rank` overrides the row's arrival argsort with the caller's
+    exact FIFO ranks: an online session's ranks are session-global
+    submission ranks, which must survive re-packs of the still-live
+    subset (reference `src/repro/traces/batch.py:210`). Raises when the row's
+    capacities cannot hold the table."""
     f, c = t.size.shape[0], t.num_coflows
     F, C, P = tb.max_flows, tb.max_coflows, tb.num_ports
     if f > F or c > C or t.num_ports > P:
@@ -218,7 +222,8 @@ def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
     tb.flow_valid[b, :f] = True
     tb.arrival[b, :c] = t.arrival
     tb.arrival_rank[b, :c] = np.argsort(
-        np.argsort(t.arrival, kind="stable"), kind="stable")
+        np.argsort(t.arrival, kind="stable"), kind="stable") \
+        if arrival_rank is None else arrival_rank
     tb.width[b, :c] = t.width
     tb.coflow_valid[b, :c] = True
     tb.flow_lo[b, :c] = t.flow_lo
@@ -266,6 +271,24 @@ def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
         keys = t.cid[order].astype(np.int64) * (Lf + 1) + link[order]
         lo_out[b] = np.searchsorted(keys, grid, "left").reshape(C, Lf)
         hi_out[b] = np.searchsorted(keys, grid, "right").reshape(C, Lf)
+
+
+def row_of(tb: TraceBatch, b: int) -> tuple:
+    """Copies of row `b`'s leaves without the batch axis: the unit the
+    `SessionPool`'s dirty-row scatter stages on the host (pack into a
+    1-row scratch with `pack_row`, slice with `row_of`, stack the dirty
+    set with `stack_rows`, scatter once; reference
+    `src/repro/traces/batch.py:302`)."""
+    return tuple(None if a is None else np.array(a[b]) for a in tb)
+
+
+def stack_rows(rows: Sequence[tuple]) -> TraceBatch:
+    """Stack `row_of` tuples into a (k, ...) TraceBatch update payload
+    (reference `src/repro/traces/batch.py:310`)."""
+    if not rows:
+        raise ValueError("stack_rows needs at least one row")
+    return TraceBatch(*(None if cols[0] is None else np.stack(cols)
+                        for cols in zip(*rows)))
 
 
 def pack(traces: Sequence[Union[Trace, FlowTable]], *,
@@ -329,4 +352,4 @@ def to_device(tb: TraceBatch, device) -> TraceBatch:
 
 
 __all__ = ["TraceBatch", "pack", "pack_row", "blank_row", "empty_batch",
-           "to_device"]
+           "row_of", "stack_rows", "to_device"]

@@ -376,6 +376,111 @@ def test_leafspine_fleet_replay_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(gpu.cct, cpu.cct)
 
 
+# ---- the online session and the pool slab --------------------------------
+
+def _stream_pool(device, topology=None, tenants=4, advances=None):
+    """`tenants` rows of a `SessionPool`, tenant i streaming
+    tiny_trace(16, 12, seed=i): every arrival before the new clock is
+    submitted, then the fleet advances 16 δ; once all are in, it drains
+    in 1 s advances. With `advances` it stops mid-stream after that
+    many. Returns ({(tenant, handle): (cct, fct)}, pool)."""
+    from repro_torch.api import SessionPool
+    from repro_torch.traces.synth import tiny_trace
+
+    params = SchedulerParams()
+    pool = SessionPool(params, num_ports=12, max_sessions=tenants,
+                       topology=topology, device=device)
+    rows = [pool.session() for _ in range(tenants)]
+    queues = [sorted(tiny_trace(16, 12, seed=i).coflows,
+                     key=lambda c: (c.arrival, c.cid))
+              for i in range(tenants)]
+    out = {}
+
+    def harvest():
+        for s, d in pool.poll():
+            key = (rows.index(s), d.handle)
+            assert key not in out
+            out[key] = (d.cct, tuple(d.fct))
+
+    clock, dt = 0.0, 16 * params.delta
+    while any(queues):
+        clock += dt
+        for s, q in zip(rows, queues):
+            while q and q[0].arrival < clock:
+                s.submit([q.pop(0)])
+        pool.advance(dt)
+        harvest()
+        if advances is not None and pool.io["dispatches"] >= advances:
+            return out, pool
+    for _ in range(10_000):
+        if not any(s.num_live for s in rows):
+            break
+        pool.advance(1.0)
+        harvest()
+    assert len(out) == 16 * tenants
+    return out, pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("maxmin", [False, True])
+def test_session_pool_on_card_matches_cpu(cuda, maxmin):
+    """A 4-tenant pool streaming its traces on the card equals the same
+    pool on the CPU, completion for completion, bit for bit (on the big
+    switch, and on a leaf-spine fabric through K3)."""
+    from repro_torch.fabric.topology import LeafSpine
+
+    topo = LeafSpine(4, 4.0, "maxmin") if maxmin else None
+    gpu, _ = _stream_pool(cuda, topo)
+    cpu, _ = _stream_pool("cpu", topo)
+    assert gpu == cpu
+
+
+@pytest.mark.gpu
+def test_session_advance_past_every_horizon_changes_no_leaf(cuda):
+    """Mid-stream, with every lane at its horizon, a session advance is
+    an exact no-op on every leaf of the slab (NaNs included), and K1 and
+    K2 run once per event step of the loop."""
+    from repro_torch.fabric import engine as eng
+
+    _, pool = _stream_pool(cuda, advances=6)
+    pool._sync_ctl()
+    before = eng.tree_map(lambda a: a.cpu().numpy(), pool._state)
+    ops.reset_launches()
+    state, steps, reads = eng.session_advance(
+        pool._state, pool._tb, pool._ep_stack,
+        n_end=pool._ticks.astype(np.float32),
+        features=pool._features_now)
+    counts = ops.launch_counts()
+    assert steps == reads == 1
+    assert counts["contention"] == counts["tick_walk"] == steps
+    eng.tree_map(lambda a, b: np.testing.assert_array_equal(
+        a.cpu().numpy(), b), state, before)
+
+
+@pytest.mark.gpu
+def test_session_pool_launches_equal_loop_steps(cuda, monkeypatch):
+    """Over a streamed 4-tenant pool, K1 and K2 launch exactly once per
+    event step the session loops ran (discarded steps included), and
+    the max-min kernel not at all on the big switch."""
+    from repro_torch.fabric import engine as eng
+
+    steps = [0]
+    real = eng.session_advance
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        steps[0] += out[1]
+        return out
+
+    monkeypatch.setattr(eng, "session_advance", spy)
+    ops.reset_launches()
+    _stream_pool(cuda)
+    counts = ops.launch_counts()
+    assert steps[0] > 0
+    assert counts["contention"] == counts["tick_walk"] == steps[0]
+    assert counts["maxmin"] == 0
+
+
 
 # ---- the redesigned K2 and K3 at their edges -----------------------------
 

@@ -19,6 +19,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core.params import SchedulerParams as JParams
 from repro.fabric import jax_engine
@@ -153,8 +154,8 @@ def test_jax_mid_run_state_finishes_in_the_port():
 
 
 def test_from_reference_refuses_what_is_not_ported():
-    """Leaf-spine batches are carried now; pilot sampling (batches and
-    learned lanes) and session states are still refused."""
+    """Leaf-spine batches and session states are carried now; pilot
+    sampling (batches and learned lanes) is still refused."""
     from repro.fabric.topology import LeafSpine
 
     tr = [jax_family_trace("uniform", seed=1)]
@@ -178,9 +179,20 @@ def test_from_reference_refuses_what_is_not_ported():
         np.asarray, jax_engine._init_batch(tb, jax_engine.EngineParams
                                            .from_scheduler(_jp(FULL)),
                                            sweep=False))
-    session = state._replace(rate=np.zeros_like(state.sent))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        engine.from_reference(tb, ep, session, device="cpu")
+    rng = np.random.default_rng(3)
+    B = state.sent.shape[0]
+    session = state._replace(
+        rate=rng.uniform(0.0, 2.0, state.sent.shape).astype(np.float32),
+        pend_sent=rng.uniform(0.0, 5.0, state.sent.shape).astype(
+            np.float32),
+        pend_tick=np.full(B, 7.0, np.float32),
+        pend_next=np.full(B, 19.0, np.float32))
+    _, _, st = engine.from_reference(tb, ep, session, device="cpu")
+    for name in ("rate", "pend_sent", "pend_tick", "pend_next"):
+        got = getattr(st, name)
+        assert got.dtype == torch.float32, name
+        np.testing.assert_array_equal(got.numpy(), getattr(session, name),
+                                      err_msg=name)
 
 
 @pytest.mark.slow
