@@ -10,9 +10,10 @@ switch, then on a 4:1 leaf-spine fabric with the max-min work-
 conservation fill; then through `repro_torch.launch.lm_serve.
 ServeSession` Mamba2-1.3B and StarCoder2-3B at their published widths
 and depths; then the same 16 traces streamed online into a
-`repro_torch.api.SessionPool`, and a leaf-spine pool — and holds each
-hand-written CUDA kernel of those paths against its plain PyTorch
-version on the same inputs:
+`repro_torch.api.SessionPool`, and a leaf-spine pool; then the fleet with
+pilot-learned coflow sizes, and the `repro_torch.launch.serve.
+CoflowServer` front door — and holds each hand-written CUDA kernel of
+those paths against its plain PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the five kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -26,7 +27,9 @@ version on the same inputs:
 3. one chunk of 128 event steps of each path, and one chunk of 32
    session steps (the `n_end`-capped branch of the tick), under
    `torch.cuda.set_sync_debug_mode("error")`: the tick loop makes no
-   host synchronization;
+   host synchronization; then the same for a learned replay chunk (the
+   pilot estimate built in) and a chunk of a sampling pool slab with a
+   known and a learned row;
 4. the big-switch main path: the 16-trace fleet through `run(Scenario(
    ...))`, with the kernels' launch counters set to 0 just before and
    read just after (K1 and K2 must equal the event steps); per-lane avg
@@ -128,14 +131,51 @@ version on the same inputs:
    the event steps; a fifth tenant under the Aalo-queue ablation
    (`per_flow_threshold=False`) against its offline replay at ROADMAP
    C2's bar (rtol 1e-2, atol 2δ: its float byte sums round by the
-   slab's padding).
+   slab's padding);
+18. the learned fleet (`learned_main_path`): phase 4's 16 traces through
+   `run(Scenario(..., clairvoyance=False))`, counters as in 4 (K1 = K2 =
+   the event steps, K3 = K4 = K5 = 0), every coflow finished and byte
+   delivered; lanes 0 and 1 (and a replay of those two alone, for the
+   event count) with the JAX package's events and within 1% of its avg
+   CCT (`tests/data/torch_port_learned_golden.json`); the leaf-spine
+   pair fb_like_trace(48, 150, seed=0/1) learned under `LeafSpine(4,
+   4.0, "maxmin")` against the same golden, K3 = the event steps; the
+   three heaviest captured ticks of the fleet (as phase 6) and of the
+   pair (as phase 9, rates bit for bit), each carrying the pilot
+   estimate, with K1-K3 against the plain versions; and
+   `benchmarks/fig_sampling.py`'s jax-plane lanes on fb_like_trace(240,
+   100, seed=0) (known, learned, aalo-like), each within 1% of the
+   golden, learned ahead of aalo-like on avg CCT, and a sweep over
+   [known, learned] whose known row is bit for bit the solo known run;
+19. the serving front door (`server_main_path`): `CoflowServer(
+   SchedulerParams(), num_ports=150, max_tenants=8, features=(True,
+   True, False, False, True))`, 12 tenants registering in turn
+   (registrants 9-12 meet `AdmissionError` until evictions free rows),
+   tenant i streaming fb_like_trace(128, 150, seed=100 + i) (the FB
+   width, cut in depth from 526 coflows to keep the phase short), even
+   tenants known, odd ones learned, tenants 10 and 11 under a
+   `TenantQuota` (reject, defer with an SLO) that sheds; arrivals before
+   the new clock submitted before each 16 δ advance (1 s advances once
+   no tenant has arrivals left), polls, evictions of drained tenants
+   and the next registration. Tenants without a quota equal the port's
+   offline `run` of their traces on the card: known bit for bit, learned
+   at ROADMAP C9's bar (rtol 1e-2, atol 2δ, the differing count
+   printed); the quota tenants' shed and deferred counts are positive,
+   every coflow is completed or shed once; K1 = K2 = the session loops'
+   event steps, K3 = K4 = K5 = 0; the three heaviest ticks captured in
+   the session loops (every 64th, as in phase 4; the slab's shape, known
+   and learned rows together) with K1 and K2 against the plain versions
+   as in phase 6; wall, advances, wall ms per advance (median, p99),
+   `pool.io` and peak device memory (the captured ticks' clones
+   included) printed.
 
 Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-six main-path runs, split by path in `launches_by_path`), the
-nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
+nine main-path runs, split by path in `launches_by_path`), the script's
+wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
+{...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
 without a CUDA device.
 
@@ -145,6 +185,8 @@ each serve path (`profile_serve`): wall time per event step, prefill or
 token, device busy share, kernel launches and the kernels with the most
 device time.
 """
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -156,6 +198,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_fb_golden.json"
 LEAF_GOLDEN = ROOT / "tests" / "data" / "torch_port_leafspine_golden.json"
 MAMBA_GOLDEN = ROOT / "tests" / "data" / "torch_port_mamba2_golden.json"
 ATTN_GOLDEN = ROOT / "tests" / "data" / "torch_port_starcoder2_golden.json"
+LEARNED_GOLDEN = ROOT / "tests" / "data" / "torch_port_learned_golden.json"
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # non-tensor f32; used for 32-bit word ops too
@@ -195,6 +238,10 @@ BF16_LOGIT_ATOL = 0.1  # the bf16 logit bar (ROADMAP C5)
 PAIR_STEPS = 8       # teacher-forced decode steps of the bf16 pair
 POOL_DRAIN = 1.0     # seconds a drain advance of phases 16-17 moves
 DELTA_ADVANCES = 200  # one-δ advances of phase 16's budget run
+# phase 18's fig_sampling trace (benchmarks/fig_sampling.py's bench shape)
+FIG_COFLOWS, FIG_PORTS = 240, 100
+# phase 19: tenants, rows and each tenant's trace depth
+SERVER_TENANTS, SERVER_ROWS, SERVER_COFLOWS = 12, 8, 128
 
 
 def fail(msg):
@@ -492,16 +539,12 @@ def profile_serve(sess, prompts, n_decode=16):
         report_profile(prof, wall, n_decode, "token")
 
 
-def drive(tag, sc, fleet):
-    """Run scenario `sc` with every launch counter set to 0 just before
-    and read just after, capturing every CAPTURE_EVERY-th tick's inputs;
-    check that every real coflow finished and every byte arrived.
-    Returns (result, launch counts, captured ticks)."""
-    import torch
-
-    from repro_torch.api import run
+@contextlib.contextmanager
+def capture_ticks():
+    """While the block runs, clone the inputs of every CAPTURE_EVERY-th
+    call of `tick_core` (the replay's and the session loop's alike) into
+    the list it yields, for `compare_ticks`."""
     from repro_torch.core import coordinator as co
-    from repro_torch.kernels import ops
 
     captured, calls = [], [0]
     real_tick_core = co.tick_core
@@ -517,17 +560,34 @@ def drive(tag, sc, fleet):
         calls[0] += 1
         return real_tick_core(state, batch, now, dp, **kw)
 
+    co.tick_core = spy
+    try:
+        yield captured
+    finally:
+        co.tick_core = real_tick_core
+
+
+def drive(tag, sc, fleet, coflows=COFLOWS):
+    """Run scenario `sc` (the traces `fleet`, `coflows` coflows each) with
+    every launch counter set to 0 just before and read just after,
+    capturing every CAPTURE_EVERY-th tick's inputs; check that every real
+    coflow finished and every byte arrived. Returns (result, launch
+    counts, captured ticks)."""
+    import torch
+
+    from repro_torch.api import run
+    from repro_torch.kernels import ops
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    co.tick_core = spy
-    ops.reset_launches()
-    try:
-        res = run(sc)
-    finally:
-        counts = ops.launch_counts()
-        co.tick_core = real_tick_core
+    with capture_ticks() as captured:
+        ops.reset_launches()
+        try:
+            res = run(sc)
+        finally:
+            counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"[{tag}] fleet of {len(fleet)} x fb_like_trace({COFLOWS}, "
+    print(f"[{tag}] fleet of {len(fleet)} x fb_like_trace({coflows}, "
           f"{PORTS}), topology {sc.topology}: events {res.events}, ticks "
           f"{res.ticks}, wall {res.wall_seconds:.3f} s, peak device memory "
           f"{peak / 2**20:.1f} MiB, launches {counts}")
@@ -544,10 +604,11 @@ def drive(tag, sc, fleet):
     return res, counts, captured
 
 
-def compare_ticks(tag, captured, exact_rates):
+def compare_ticks(tag, captured, exact_rates, learned=False):
     """The heaviest captured ticks with the kernels against the plain
-    versions. Returns ({kernel: (args, kwargs) of its last launch},
-    {kernel: max abs error})."""
+    versions; with `learned`, each must carry the pilot estimate
+    (`s_mixed`, `s_m`). Returns ({kernel: (args, kwargs) of its last
+    launch}, {kernel: max abs error})."""
     import torch
 
     from repro_torch.core import coordinator as co
@@ -557,6 +618,11 @@ def compare_ticks(tag, captured, exact_rates):
         return int(c[1].active.sum())
 
     heavy = sorted(captured, key=work)[-3:]
+    if not heavy:
+        fail(f"[{tag}] no tick was captured")
+    if learned and any(c[1].s_mixed is None or c[3].clairvoyant is None
+                       for c in heavy):
+        fail(f"[{tag}] a captured tick carries no pilot estimate")
     grabbed = {}
     names = ("contention", "tick_walk", "maxmin_rates")
     real_ops = {n: getattr(ops, n) for n in names}
@@ -600,8 +666,12 @@ def compare_ticks(tag, captured, exact_rates):
             err[who] = max(err[who], float((a - b).abs().max()))
         err["contention"] = max(err["contention"], float(
             (got["contention"] - want["contention"]).abs().max()))
+        pilot = ("" if batch.s_mixed is None else
+                 f", {int((batch.s_mixed & batch.active).sum())} with a "
+                 f"pilot estimate")
         print(f"[{tag}] captured tick {i} ({work((st, batch))} active "
-              f"coflows in {batch.active.shape[0]} lanes): kernels == "
+              f"coflows in {batch.active.shape[0]} lanes{pilot}): "
+              f"kernels == "
               f"plain versions (max abs rate diff "
               f"{max(err['tick_walk'], err['maxmin_rates']):.3g})")
     return grabbed, err
@@ -1203,13 +1273,284 @@ def leafspine_pool(tag, params, leaf):
     return counts
 
 
+def within(tag, what, got, want, bar=1e-2):
+    """Fail unless `got` is within `bar` of `want` (relative); print
+    both."""
+    rel = abs(got - want) / want
+    print(f"[{tag}] {what}: avg CCT {got:.6f} vs JAX {want:.6f} (relative "
+          f"deviation {rel:.3e})")
+    if rel > bar:
+        fail(f"[{tag}] {what} deviates {rel:.3%} from the JAX package")
+
+
+def learned_main_path(tag, fleet, params, leaf, known):
+    """Phase 18: the learned-size fleet, its parity lanes, the learned
+    leaf-spine pair and fig_sampling's jax-plane lanes against
+    `LEARNED_GOLDEN`. `known` is phase 4's result (the same traces with
+    known sizes, for the wall beside). Returns the launch counts of the
+    big-switch fleet run and of the leaf-spine pair, and the kernels'
+    largest deviations from their plain versions on both runs' captured
+    ticks."""
+    import numpy as np
+
+    from repro_torch.api import Scenario, run
+    from repro_torch.kernels import ops
+    from repro_torch.traces.synth import fb_like_trace
+
+    gold = json.loads(LEARNED_GOLDEN.read_text())
+    res, counts, captured = drive(tag, Scenario(
+        engine="torch", traces=fleet, clairvoyance=False), fleet)
+    for name in ("contention", "tick_walk"):
+        if counts[name] != res.events:
+            fail(f"[{tag}] {name} launched {counts[name]} times for "
+                 f"{res.events} learned event steps")
+    if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
+        fail(f"[{tag}] K3, K4 or K5 ran on the learned big-switch fleet")
+    print(f"[{tag}] learned fleet wall {res.wall_seconds:.3f} s, {res.events} "
+          f"events, {res.ticks} ticks, against phase 4's known-size replay "
+          f"in this run: {known.wall_seconds:.3f} s, {known.events} events, "
+          f"{known.ticks} ticks; {smi()}")
+    pair = run(Scenario(engine="torch", traces=fleet[:2], clairvoyance=False))
+    print(f"[{tag}] lanes {gold['seeds']} alone: events {pair.events} vs JAX "
+          f"{gold['fleet']['events']}, wall {pair.wall_seconds:.3f} s")
+    if pair.events != gold["fleet"]["events"]:
+        fail(f"[{tag}] the learned lanes took another event count than the "
+             f"JAX package")
+    for b, want in enumerate(gold["fleet"]["avg_cct"]):
+        within(tag, f"learned lane {b} (fleet)", res.avg_cct[b], want)
+        within(tag, f"learned lane {b} (alone)", pair.avg_cct[b], want)
+
+    _, err = compare_ticks(tag, captured, exact_rates=False, learned=True)
+    del captured
+
+    traces = tuple(fb_like_trace(PARITY_COFLOWS, PORTS, seed=s)
+                   for s in gold["seeds"])
+    lres, lcounts, lcaptured = drive(tag, Scenario(
+        engine="torch", traces=traces, topology=leaf, clairvoyance=False),
+        traces, coflows=PARITY_COFLOWS)
+    print(f"[{tag}] learned leaf-spine fb_like_trace({PARITY_COFLOWS}, "
+          f"{PORTS}) lanes {gold['seeds']} ({leaf}): events {lres.events} vs "
+          f"JAX {gold['leafspine']['events']}, wall {lres.wall_seconds:.3f} "
+          f"s, launches {lcounts}")
+    if lres.events != gold["leafspine"]["events"]:
+        fail(f"[{tag}] the learned leaf-spine lanes took another event "
+             f"count than the JAX package")
+    for name in ("contention", "tick_walk", "maxmin"):
+        if lcounts[name] != lres.events:
+            fail(f"[{tag}] {name} launched {lcounts[name]} times for "
+                 f"{lres.events} learned leaf-spine event steps")
+    if lcounts["ssd_scan"] or lcounts["flash_attention"]:
+        fail(f"[{tag}] a model kernel ran on the learned leaf-spine path")
+    for b, want in enumerate(gold["leafspine"]["avg_cct"]):
+        within(tag, f"learned leaf-spine lane {b}", lres.avg_cct[b], want)
+    _, lerr = compare_ticks(tag, lcaptured, exact_rates=True, learned=True)
+    err = {k: max(err[k], lerr[k]) for k in err}
+
+    p = dataclasses.replace(params, dynamics_requeue=True)
+    tr = fb_like_trace(FIG_COFLOWS, FIG_PORTS, seed=0)
+    lanes = {"known": dict(clairvoyance=True),
+             "learned": dict(clairvoyance=False),
+             "aalo-like": dict(mechanisms=dict(lcof=False,
+                                               per_flow_threshold=False))}
+    fig = {}
+    for lane, kw in lanes.items():
+        fig[lane] = run(Scenario(engine="torch", trace=tr, params=p, **kw))
+        within(tag, f"fig_sampling {lane} (fb_like_trace({FIG_COFLOWS}, "
+               f"{FIG_PORTS}, seed=0), {fig[lane].events} events, wall "
+               f"{fig[lane].wall_seconds:.3f} s)", fig[lane].avg_cct[0],
+               gold["fig_sampling"][lane]["avg_cct"])
+    learned, aalo = fig["learned"].avg_cct[0], fig["aalo-like"].avg_cct[0]
+    print(f"[{tag}] fig_sampling: known {fig['known'].avg_cct[0]:.6f}, "
+          f"learned {learned:.6f}, aalo-like {aalo:.6f} s avg CCT")
+    if not learned < aalo:
+        fail(f"[{tag}] learned Saath does not beat aalo-like")
+    sweep = run(Scenario(engine="torch", trace=tr, sweep=(
+        p, dataclasses.replace(p, clairvoyant=False))))
+    if not np.array_equal(sweep.row_cct(0), fig["known"].row_cct(0)):
+        fail(f"[{tag}] the sweep's known row differs from the solo known run")
+    if np.array_equal(sweep.row_cct(1), fig["known"].row_cct(0)):
+        fail(f"[{tag}] the sweep's learned row equals the known schedule")
+    dev_l = np.abs(sweep.row_cct(1) - fig["learned"].row_cct(0)).max()
+    print(f"[{tag}] sweep [known, learned]: the known row equals the solo "
+          f"known run bit for bit, the learned row differs from it (max "
+          f"|Δ CCT| to the solo learned run {dev_l:.3e} s)")
+    return counts, lcounts, err
+
+
+def server_main_path(tag, params):
+    """Phase 19: the `CoflowServer` front door (see the module docstring).
+    Returns the launch counts and the kernels' largest deviations from
+    their plain versions on the server's captured ticks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Scenario, run
+    from repro_torch.fabric import engine as eng
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (AdmissionError, CoflowServer,
+                                          QuotaExceededError, TenantQuota)
+    from repro_torch.traces.synth import fb_like_trace
+
+    n = SERVER_TENANTS
+    traces = [fb_like_trace(SERVER_COFLOWS, PORTS, seed=100 + i)
+              for i in range(n)]
+    quotas = {10: TenantQuota(max_live_coflows=4, policy="reject"),
+              11: TenantQuota(max_live_coflows=4, slo=0.5, policy="defer")}
+    learned = [i % 2 == 1 for i in range(n)]
+    plain = [i for i in range(n) if i not in quotas]
+    offline = {}
+    for flag in (False, True):
+        ids = [i for i in plain if learned[i] == flag]
+        r = run(Scenario(engine="torch", traces=tuple(traces[i] for i in ids),
+                         clairvoyance=False if flag else None))
+        offline.update({i: r.row_cct(j) for j, i in enumerate(ids)})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps, real = [0], eng.session_advance
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        steps[0] += out[1]
+        return out
+
+    ops.reset_launches()
+    eng.session_advance = spy
+    t0 = time.perf_counter()
+    srv = CoflowServer(params, num_ports=PORTS, max_tenants=SERVER_ROWS,
+                       features=(True, True, False, False, True))
+    waiting, refused, queues, cid_of = list(range(n)), [], {}, {}
+    cct = {i: np.full(SERVER_COFLOWS, np.nan) for i in plain}
+    agg, quota_sheds, walls = {}, 0, []
+    parts = dict(submit=0.0, advance=0.0, poll=0.0)
+
+    def register(first):
+        """Register waiting tenants in turn; after the first round stop
+        at the first refusal (the cap is reached)."""
+        for i in list(waiting):
+            try:
+                srv.register(f"t{i}", quota=quotas.get(i), mechanisms=(
+                    {"clairvoyant": False} if learned[i] else None))
+            except AdmissionError:
+                refused.append(i)
+                if first:
+                    continue
+                return
+            waiting.remove(i)
+            queues[i] = sorted(traces[i].coflows,
+                               key=lambda c: (c.arrival, c.cid))
+            cid_of[i] = {}
+
+    try:
+        with capture_ticks() as captured:
+            register(first=True)
+            while queues:
+                t_adv = time.perf_counter()
+                dt = 16 * params.delta if any(queues.values()) else POOL_DRAIN
+                for i, q in queues.items():
+                    name = f"t{i}"
+                    clock = srv._tenants[name].now + dt
+                    batch = []
+                    while q and q[0].arrival < clock:
+                        batch.append(q.pop(0))
+                    if not batch:
+                        continue
+                    try:
+                        handles = srv.submit(name, batch)
+                    except QuotaExceededError:
+                        quota_sheds += 1
+                        continue
+                    cid_of[i].update(zip(handles, (c.cid for c in batch)))
+                t_mid = time.perf_counter()
+                srv.advance(dt)
+                t_polls = time.perf_counter()
+                parts["submit"] += t_mid - t_adv
+                parts["advance"] += t_polls - t_mid
+                for i in list(queues):
+                    name = f"t{i}"
+                    for d in srv.poll(name):
+                        if i in cct:
+                            c = cid_of[i].pop(d.handle)
+                            cct[i][c] = d.cct
+                    if not queues[i] and not srv.num_live(name) \
+                            and not srv._deferred[name]:
+                        agg[i] = dataclasses.asdict(srv.aggregates(name))
+                        srv.evict(name)
+                        del queues[i]
+                        register(first=False)
+                parts["poll"] += time.perf_counter() - t_polls
+                walls.append(1e3 * (time.perf_counter() - t_adv))
+            torch.cuda.synchronize()
+    finally:
+        eng.session_advance = real
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = srv.stats()
+    w = np.array(walls)
+    print(f"[{tag}] CoflowServer, {n} tenants x fb_like_trace("
+          f"{SERVER_COFLOWS}, {PORTS}) through {SERVER_ROWS} rows: "
+          f"{len(w)} advances, event steps {steps[0]}, wall {wall:.3f} s, "
+          f"wall per advance median {np.median(w):.3f} ms p99 "
+          f"{np.percentile(w, 99):.3f} ms (δ = {1e3 * params.delta:.0f} ms),"
+          f" peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB held before, launches {counts}; "
+          f"pool.io {srv.pool.io}; stats {st}; admission refusals of "
+          f"tenants {refused}; where the wall went (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.items())
+          + " (advance: the pooled advance, harvest and deferred retries; "
+          "poll: polls, evictions, registrations)")
+    if sorted(set(refused)) != list(range(SERVER_ROWS, n)):
+        fail(f"[{tag}] admission refused tenants {sorted(set(refused))}, "
+             f"not exactly those past the {SERVER_ROWS}-row cap")
+    if st["tenants"] or st["live_coflows"] or st["deferred_pending"] \
+            or st["rejected"] != len(refused) or len(agg) != n:
+        fail(f"[{tag}] the server's stats are inconsistent: {st}")
+    for i in quotas:
+        a = agg[i]
+        print(f"[{tag}] tenant {i} ({quotas[i].policy}): completed "
+              f"{a['coflows']}, shed {a['shed']}, deferred {a['deferred']}")
+        if a["coflows"] + a["shed"] != SERVER_COFLOWS or not a["shed"]:
+            fail(f"[{tag}] quota tenant {i} does not account for every "
+                 f"coflow once, or shed none: {a}")
+    if not agg[11]["deferred"] or quota_sheds == 0:
+        fail(f"[{tag}] the quota tenants deferred or rejected nothing")
+    for i in plain:
+        want, got = offline[i], cct[i]
+        if agg[i]["coflows"] != SERVER_COFLOWS:
+            fail(f"[{tag}] tenant {i} completed {agg[i]['coflows']} coflows")
+        if not learned[i]:
+            if not np.array_equal(got, want):
+                fail(f"[{tag}] known tenant {i}: "
+                     f"{int((got != want).sum())} per-coflow CCTs differ "
+                     f"from its offline replay")
+            continue
+        d = np.abs(got - want)
+        print(f"[{tag}] learned tenant {i} against its offline replay: "
+              f"{int((d > 0).sum())} of {SERVER_COFLOWS} CCTs differ, max "
+              f"|Δ| {d.max():.3e} s (C9's bar: rtol 1e-2, atol 2δ)")
+        if not np.all(d <= 2 * params.delta + 1e-2 * np.abs(want)):
+            fail(f"[{tag}] learned tenant {i} is outside C9's bar")
+    print(f"[{tag}] known tenants {[i for i in plain if not learned[i]]} "
+          f"equal their offline replay bit for bit")
+    for name in ("contention", "tick_walk"):
+        if counts[name] != steps[0]:
+            fail(f"[{tag}] {name} launched {counts[name]} times for "
+                 f"{steps[0]} event steps")
+    if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
+        fail(f"[{tag}] K3, K4 or K5 ran on the big-switch server")
+    _, err = compare_ticks(tag, captured, exact_rates=False, learned=True)
+    return counts, err
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api import Scenario, run
+    from repro_torch.api import Scenario, SessionPool, run
     from repro_torch.fabric import engine as eng
     from repro_torch.fabric.topology import LeafSpine
     from repro_torch.kernels import build, ops
@@ -1218,6 +1559,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = smi()
     print(f"card: {card} | {torch.cuda.get_device_name(0)} | torch "
@@ -1296,6 +1638,44 @@ def main():
               f"ran under set_sync_debug_mode('error'): the flag read "
               f"between chunks is the session loop's only host sync")
         del state, tb
+    # learned sizes: a replay chunk with the pilot estimate built in, and
+    # a session chunk of a sampling slab holding a known and a learned row
+    learned = dataclasses.replace(params, clairvoyant=False)
+    tb = to_device(pack(fleet, port_bw=params.port_bw, sampling=True,
+                        pilot_frac=learned.pilot_frac), dev)
+    feats = eng.features_for(learned)
+    ep = eng.EngineParams.from_scheduler(learned, device=dev).lanes(FLEET)
+    state = eng._init_state(tb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = eng._run_chunk(state, tb, ep, chunk=128, features=feats)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[3] 128 learned event steps of the fleet (features {feats}) ran "
+          f"under set_sync_debug_mode('error')")
+    del state, tb
+    pool = SessionPool(params, num_ports=PORTS, max_sessions=2,
+                       features=(True, True, False, False, True))
+    for mech in (None, {"clairvoyant": False}):
+        pool.session(mechanisms=mech).submit(fleet[0].coflows[:64])
+    pool._ensure()
+    n_end = torch.full((2,), 2048.0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = eng._session_chunk(pool._state, pool._tb, pool._ep_stack,
+                                   n_end, 32, features=pool._features_now)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not bool((state.tick > 0).all()):
+        fail("[3] the learned pool's session chunk moved no lane")
+    print(f"[3] a session chunk of 32 event steps of a sampling pool slab "
+          f"(a known and a learned row, clairvoyant leaves "
+          f"{pool._ep_stack.dp.clairvoyant.tolist()}) ran under "
+          f"set_sync_debug_mode('error')")
+    del state, pool
 
     # ---- 4. the big-switch main path -----------------------------------
     res, counts, captured = drive("4", Scenario(engine="torch",
@@ -1539,9 +1919,19 @@ def main():
     # ---- 17. the leaf-spine pool ---------------------------------------
     plcounts = leafspine_pool("17", params, leaf)
 
+    # ---- 18. learned sizes: the fleet, its parity lanes, fig_sampling --
+    ecounts, elcounts, eerr = learned_main_path("18", fleet, params, leaf,
+                                                res)
+
+    # ---- 19. the CoflowServer front door --------------------------------
+    svcounts, sverr = server_main_path("19", params)
+    err = {k: max(err[k], eerr[k], sverr[k]) for k in err}
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
-             "session_bigswitch": pcounts, "session_leafspine": plcounts}
+             "session_bigswitch": pcounts, "session_leafspine": plcounts,
+             "learned_bigswitch": ecounts, "learned_leafspine": elcounts,
+             "server": svcounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
@@ -1596,6 +1986,7 @@ def main():
                           eng.features_for(params, topology=topo), topo,
                           label)
     print(json.dumps({"kernels": kernels}))
+    print(f"script wall {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

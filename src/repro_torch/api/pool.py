@@ -23,12 +23,16 @@ Ownership (reference DESIGN.md §8):
   new completions (the `_fresh` index).
 
 Every row carries its own `EngineParams` (thresholds, δ, deadline
-factor, the wc/requeue/lcof/per-flow switches): `session(params=...,
-mechanisms=...)` admits a tenant under its own configuration, and the
-stacked (B,)-leaf parameters ride the same batched tick. All tenants
-share the pool's fabric, fidelity and queue count K; the structure
-switches (`engine.features_for`) are OR-combined over the admitted rows
-unless `features=` pins them at construction.
+factor, the wc/requeue/lcof/per-flow switches, and known or learned
+sizes): `session(params=..., mechanisms=...)` admits a tenant under its
+own configuration, and the stacked (B,)-leaf parameters ride the same
+batched tick. All tenants share the pool's fabric, fidelity and queue
+count K; the structure switches (`engine.features_for`) are OR-combined
+over the admitted rows unless `features=` pins them at construction.
+A learned (non-clairvoyant) tenant needs the fifth switch,
+`with_sampling`: the slab then carries the pilot mask (a leaf of the
+`TraceBatch`, so turning it on or off is a full rebuild), and every known
+row a 1.0 `clairvoyant` parameter leaf.
 
 Rows advance to independent horizons (a per-row `n_end`; a lane at its
 horizon is an exact no-op), so a pooled session's CCTs are bit for bit
@@ -53,9 +57,8 @@ reads are counted apart, under `io["loop_reads"]`.
 scatters and gathers, their bytes, the deferred control bytes, the
 advances (`dispatches`) and the loop's flag reads.
 
-Not ported: the sharded slab (`shards > 1`, ROADMAP queue A item 8),
-non-clairvoyant tenants (item 6), and the reference's
-`accounted_transfer` sanitizer carve-outs (item 10).
+Not ported: the sharded slab (`shards > 1`, ROADMAP queue A item 8)
+and the reference's `accounted_transfer` sanitizer carve-outs (item 10).
 """
 from __future__ import annotations
 
@@ -135,18 +138,23 @@ class SessionPool:
             raise NotImplementedError(
                 "the sharded pool (shards > 1) is not ported yet: ROADMAP "
                 "queue A item 8")
+        self.shards = 1
         self._fidelity = fidelity
         if features is not None and len(features) == 3:
             # (pfw, dyn, abl): the fill switch rides the pool's topology
             features = tuple(features) + (
                 getattr(self.topology, "wc_fill", "greedy") == "maxmin",)
+        if features is not None and len(features) == 4:
+            # (pfw, dyn, abl, maxmin): every tenant known, no sampling
+            features = tuple(features) + (False,)
         if features is not None and (
-                len(features) != 4
+                len(features) != 5
                 or not all(isinstance(b, (bool, np.bool_))
                            for b in features)):
             raise ValueError(
-                "features must be a 4-tuple of bools (per_flow_wc, "
-                "with_dynamics, with_ablations, wc_maxmin)")
+                "features must be a 5-tuple of bools (per_flow_wc, "
+                "with_dynamics, with_ablations, wc_maxmin, with_sampling);"
+                " a 3- or 4-tuple is padded")
         self._pinned = tuple(bool(b) for b in features) \
             if features is not None else None
 
@@ -170,6 +178,9 @@ class SessionPool:
         self._row_feat = [self._base_features] * self.max_sessions
         self._ep_stack = None          # stacked (B,)-leaf EngineParams
         self._features_now = self._pinned or self._base_features
+        # is the pilot mask a leaf of the slab (with_sampling)? It changes
+        # the TraceBatch's structure, so a flip is a full rebuild
+        self._sampling = bool(self._features_now[4])
         # the parked device ctl of the last advance and the rows
         # awaiting its download
         self._ctl = None               # (tick, finished) | None
@@ -197,7 +208,6 @@ class SessionPool:
                 f"K={p.num_queues}")
         lcof = mech.get("lcof", True)
         per_flow = mech.get("per_flow_threshold", True)
-        # raises for a non-clairvoyant re-queue (ROADMAP queue A item 6)
         feat = self._eng.features_for(
             p, fidelity=self._fidelity, lcof=lcof,
             per_flow_threshold=per_flow, topology=self.topology)
@@ -205,13 +215,20 @@ class SessionPool:
             p, lcof=lcof, per_flow_threshold=per_flow)
         if self._pinned is not None:
             names = ("per_flow_wc", "with_dynamics", "with_ablations",
-                     "wc_maxmin")
+                     "wc_maxmin", "with_sampling")
             for i, name in enumerate(names):
                 if feat[i] and not self._pinned[i]:
                     raise ValueError(
                         f"tenant needs feature {name!r} but the pool "
                         f"pinned features={self._pinned} at construction; "
                         f"pin a superset")
+            if not p.clairvoyant and not self._pinned[4]:
+                # a learned tenant brings a `clairvoyant` parameter leaf,
+                # which a slab pinned without sampling does not stack
+                raise ValueError(
+                    f"a non-clairvoyant tenant needs feature "
+                    f"'with_sampling' but the pool pinned features="
+                    f"{self._pinned} at construction; pin a superset")
         return p, ep, feat
 
     # ---- admission -------------------------------------------------------
@@ -477,15 +494,27 @@ class SessionPool:
             feats = [self._base_features] + \
                 [self._row_feat[s._row] for s in self.sessions]
             self._features_now = tuple(
-                any(f[i] for f in feats) for i in range(4))
+                any(f[i] for f in feats) for i in range(5))
+        if bool(self._features_now[4]) != self._sampling:
+            # the pilot mask is a slab leaf: sampling on (or off) changes
+            # the TraceBatch's structure, so slab and scratch are rebuilt
+            self._sampling = bool(self._features_now[4])
+            self._scratch = None
+            grew = True
         if self._tb is None or grew:
             self._rebuild()
         else:
             self._scatter_dirty()
         if self._ep_stack is None:
             eng = self._eng
-            stack = eng.tree_map(lambda *xs: torch.stack(xs),
-                                 *self._row_ep)
+            rows = self._row_ep
+            if self._sampling or any(e.dp.clairvoyant is not None
+                                     for e in rows):
+                # known rows (no leaf) stack beside learned ones (0.0) as
+                # 1.0; a sampling slab keeps the leaf even when every
+                # tenant is known, so a learned joiner changes no shape
+                rows = [e._replace(dp=e.dp.known()) for e in rows]
+            stack = eng.tree_map(lambda *xs: torch.stack(xs), *rows)
             self._ep_stack = eng.tree_map(
                 lambda x: eng.host_to_device(x.numpy(), self.device),
                 stack)
@@ -546,7 +575,8 @@ class SessionPool:
             self._scratch = empty_batch(
                 1, flow_capacity=self._F_cap,
                 coflow_capacity=self._C_cap,
-                port_capacity=self.num_ports, leaf_links=self._Lf)
+                port_capacity=self.num_ports, leaf_links=self._Lf,
+                sampling=self._sampling)
         return self._scratch
 
     def _blank_scratch(self):
@@ -565,7 +595,7 @@ class SessionPool:
         tb = empty_batch(self.max_sessions, flow_capacity=self._F_cap,
                          coflow_capacity=self._C_cap,
                          port_capacity=self.num_ports,
-                         leaf_links=self._Lf)
+                         leaf_links=self._Lf, sampling=self._sampling)
         rows = [self._blank_state_row() for _ in range(self.max_sessions)]
         self._blank_rows.clear()
         for s in self.sessions:
@@ -595,7 +625,8 @@ class SessionPool:
             s._epoch = s._tick
         table = s._rebuild_table()
         pack_row(tb, r, table, arrival_rank=[e.rank for e in s._slots],
-                 topology=self.topology if self._Lf else None)
+                 topology=self.topology if self._Lf else None,
+                 pilot_frac=s.params.pilot_frac)
         s._flow_lo = table.flow_lo.copy()
         s._flow_hi = table.flow_hi.copy()
         s._tb_dirty = False

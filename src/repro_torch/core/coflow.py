@@ -28,6 +28,10 @@ class Coflow:
     def width(self) -> int:
         return len(self.flows)
 
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(f.size for f in self.flows))
+
 
 @dataclasses.dataclass
 class Trace:

@@ -17,8 +17,10 @@ operation order, so that a CPU run agrees with the JAX package to the
 last bit wherever the reference's arithmetic is order-independent.
 
 The big switch and the leaf-spine fabric (`cnt_x`/`bw_x` link inputs,
-both work-conservation fills) are ported, clairvoyant only: pilot
-sampling (`s_mixed`/`s_m`) is a later slice (ROADMAP queue A item 6).
+both work-conservation fills) are ported, and so is the non-clairvoyant
+mode: with `DynCoordParams.clairvoyant` present, the §4.3 re-queue of a
+learned lane (0.0) runs off the pilot estimate (`s_mixed`/`s_m`) and a
+known lane (1.0) keeps the exact finished-flow median.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ class CoordParams(NamedTuple):
     dynamics_requeue: bool = True    # §4.3 median-based re-queue
     lcof: bool = True                # LCoF contention ordering (Fig. 10)
     per_flow_threshold: bool = True  # Eq. 1 vs Aalo total-bytes queues
-    clairvoyant: bool = True         # False = pilot sampling (not ported)
+    clairvoyant: bool = True         # False = pilot-learned sizes
 
     @staticmethod
     def from_params(p) -> "CoordParams":
@@ -83,14 +85,13 @@ class DynCoordParams(NamedTuple):
     requeue: torch.Tensor          # () 1 = §4.3 dynamics re-queue on
     lcof: torch.Tensor             # () 1 = LCoF ordering (0 = FIFO-in-q)
     per_flow: torch.Tensor         # () 1 = Eq. 1 per-flow thresholds
+    # None = clairvoyance left out (the known-size program); an f32
+    # switch otherwise: 1 = clairvoyant (exact-median re-queue), 0 =
+    # learned (pilot-estimate re-queue through CoflowBatch.s_mixed/s_m)
+    clairvoyant: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_cp(cp: CoordParams, device="cpu") -> "DynCoordParams":
-        if not cp.clairvoyant and cp.dynamics_requeue:
-            raise NotImplementedError(
-                "non-clairvoyant (pilot-sampling) re-queue is not ported "
-                "yet: ROADMAP queue A item 6")
-
         def t(x):
             return torch.tensor(x, dtype=F32, device=device)
 
@@ -101,14 +102,24 @@ class DynCoordParams(NamedTuple):
             t(1.0 if cp.work_conservation else 0.0),
             t(1.0 if cp.dynamics_requeue else 0.0),
             t(1.0 if cp.lcof else 0.0),
-            t(1.0 if cp.per_flow_threshold else 0.0))
+            t(1.0 if cp.per_flow_threshold else 0.0),
+            None if cp.clairvoyant else t(0.0))
 
     def lanes(self, B: int) -> "DynCoordParams":
         """The same parameters with a leading lane axis of size B (leaves
-        that already carry one are kept)."""
+        that already carry one are kept, a None leaf stays None)."""
         return DynCoordParams(*(
-            x.expand(B, *x.shape) if x.dim() == (1 if i < 2 else 0) else x
+            x if x is None or x.dim() != (1 if i < 2 else 0)
+            else x.expand(B, *x.shape)
             for i, x in enumerate(self)))
+
+    def known(self) -> "DynCoordParams":
+        """The same parameters with a concrete `clairvoyant` leaf (1.0
+        where it is None), so that known and learned settings stack into
+        one (B,)-leaf tree."""
+        if self.clairvoyant is not None:
+            return self
+        return self._replace(clairvoyant=torch.ones_like(self.wc))
 
 
 class CoordState(NamedTuple):
@@ -145,6 +156,11 @@ class CoflowBatch(NamedTuple):
     # counts and link capacities, uplinks before downlinks (2Lf columns)
     cnt_x: Optional[torch.Tensor] = None  # (B, C, 2Lf) f32
     bw_x: Optional[torch.Tensor] = None   # (B, 2Lf) f32
+    # non-clairvoyant sampling (None = left out): learned-mode §4.3
+    # re-queue candidates (>= 1 finished pilot and >= 1 live flow) and
+    # their estimated remaining length from the mean finished-pilot size
+    s_mixed: Optional[torch.Tensor] = None  # (B, C) bool
+    s_m: Optional[torch.Tensor] = None      # (B, C) f32
 
 
 # Per-flow companion of CoflowBatch for flow-granular work conservation
@@ -214,7 +230,16 @@ def tick_core(state: CoordState, batch: CoflowBatch, now: torch.Tensor,
     if batch.mixed is not None:
         q_dyn = _queue_of(batch.m_dyn * widthf, th)
         use_dyn = (dp.requeue > 0)[:, None] & batch.mixed & act
+        if dp.clairvoyant is not None:
+            # only known-size lanes may read the exact-size median
+            use_dyn = use_dyn & (dp.clairvoyant > 0)[:, None]
         q = torch.where(use_dyn, q_dyn, q)
+    if batch.s_mixed is not None and dp.clairvoyant is not None:
+        # learned-mode §4.3: re-queue from the pilot estimate; the
+        # clairvoyant gate keeps known lanes of a mixed slab bit for bit
+        q_smp = _queue_of(batch.s_m * widthf, th)
+        learned = (dp.clairvoyant <= 0) & (dp.requeue > 0)
+        q = torch.where(learned[:, None] & batch.s_mixed & act, q_smp, q)
     q = torch.where(act, q, state.queue.clamp(min=0))
 
     # D5: FIFO-derived deadlines, refreshed on queue entry

@@ -17,8 +17,11 @@ points run on CUDA unless the caller passes ``device="cpu"``; without a
 card and without that, they raise.
 
 The big switch and the leaf-spine fabric (`fabric.topology`, with the
-greedy or the max-min work-conservation fill) are ported, clairvoyant
-only: pilot sampling is ROADMAP queue A item 6.
+greedy or the max-min work-conservation fill) are ported, with known
+(clairvoyant) or pilot-learned coflow sizes: a learned replay packs the
+pilot mask (`traces.batch.pack(..., sampling=True)`) and the tick's
+fifth structure switch, `with_sampling`, builds the pilot estimate that
+the learned §4.3 re-queue reads (DESIGN.md §12).
 
 The online half (reference `jax_engine.py:753-1006`) serves
 `repro_torch.api.SaathSession` and `SessionPool`: `_tick` with `n_end`
@@ -201,11 +204,13 @@ def _select(lane: torch.Tensor, new, old):
 
 def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
            eps_t: torch.Tensor, *, per_flow_wc: bool, with_dynamics: bool,
-           with_ablations: bool, active_gate: Optional[torch.Tensor] = None):
+           with_ablations: bool, with_sampling: bool = False,
+           active_gate: Optional[torch.Tensor] = None):
     """One tick's coordinator view of every lane: activation, per-(coflow,
     port) live counts, Eq. 1 m_c, on a leaf-spine batch the per-(coflow,
     link) live counts, and (when built in) the §4.3 finished-flow-median
-    inputs and the ablation's total bytes. `active_gate` (B,) (sessions:
+    inputs, the pilot estimate and the ablation's total bytes.
+    `active_gate` (B,) (sessions:
     `tick < n_end`, reference `jax_engine.py:199-220`) deactivates whole
     lanes whose step `_tick` discards anyway, so their walks are empty."""
     active = tb.coflow_valid & ~state.finished \
@@ -234,6 +239,9 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
         bw_x = torch.cat([tb.bw_up, tb.bw_dn], dim=-1)   # (B, 2Lf)
         link_up, link_dn = tb.link_up, tb.link_dn
 
+    # live flows per coflow: a re-queue candidate still has one
+    n_live_c = _segment_sum(livef, tb.flow_lo, tb.flow_hi) \
+        if with_dynamics or with_sampling else None
     mixed = m_dyn = None
     if with_dynamics:
         # §4.3 remaining-length estimate: the EXACT median of finished-
@@ -261,14 +269,34 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
         rem_dyn = (f_e.gather(1, tb.cid) - state.sent).clamp(min=0.0) \
             * livef
         m_dyn = _segment_max(rem_dyn, tb.cid, tb.coflow_valid)
-        n_live_c = _segment_sum(livef, tb.flow_lo, tb.flow_hi)
         mixed = active & (n_done > 0) & (n_live_c > 0.5)
+
+    s_mixed = s_m = None
+    if with_sampling:
+        # learned-mode §4.3 inputs (reference `jax_engine.py:291-307`):
+        # the size estimate is the MEAN finished-pilot size (a finished
+        # flow's size is its delivered bytes, so only observable
+        # quantities are read); a coflow with no finished pilot is no
+        # re-queue candidate and keeps the bytes-sent placement. p_sum
+        # is a float prefix-sum difference, as in the reference: its
+        # rounding depends on the row's layout (ROADMAP C9)
+        if tb.pilot is None:
+            raise ValueError("with_sampling needs a TraceBatch packed "
+                             "with sampling=True (no pilot mask)")
+        pdone = (tb.pilot & tb.flow_valid & state.done).to(F32)
+        n_p = _segment_sum(pdone, tb.flow_lo, tb.flow_hi)
+        p_sum = _segment_sum(pdone * tb.size, tb.flow_lo, tb.flow_hi)
+        f_hat = p_sum / n_p.clamp(min=1.0)
+        rem_s = (f_hat.gather(1, tb.cid) - state.sent).clamp(min=0.0) \
+            * livef
+        s_m = _segment_max(rem_s, tb.cid, tb.coflow_valid)
+        s_mixed = active & (n_p > 0.5) & (n_live_c > 0.5)
 
     batch = co.CoflowBatch(active=active, arrival=tb.arrival_rank, m=m,
                            width=tb.width, cnt_s=cnt_s, cnt_r=cnt_r,
                            bw_s=tb.bw_send, bw_r=tb.bw_recv,
                            total=total, mixed=mixed, m_dyn=m_dyn,
-                           cnt_x=cnt_x, bw_x=bw_x)
+                           cnt_x=cnt_x, bw_x=bw_x, s_mixed=s_mixed, s_m=s_m)
     flows = co.FlowView(cid=tb.cid, src=tb.src, dst=tb.dst, live=live,
                         flow_lo=tb.flow_lo, flow_hi=tb.flow_hi,
                         up=link_up, dn=link_dn) \
@@ -280,6 +308,7 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
           per_flow_wc: bool = True, with_dynamics: bool = True,
           with_ablations: bool = False,
           wc_maxmin: bool = False,
+          with_sampling: bool = False,
           n_end: Optional[torch.Tensor] = None) -> EngineState:
     """Advance every lane one event step: schedule at the current δ
     tick, find the next instant the schedule could change, quantize it
@@ -302,7 +331,7 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
     batch, flows, active, live, livef = _views(
         state, tb, now, eps_t, per_flow_wc=per_flow_wc,
         with_dynamics=with_dynamics, with_ablations=with_ablations,
-        active_gate=can)
+        with_sampling=with_sampling, active_gate=can)
     total = batch.total
     coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows,
                               wc_fill="maxmin" if wc_maxmin else "greedy")
@@ -343,7 +372,10 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
                         inf).amin(-1)
     t_ev = torch.minimum(torch.minimum(t_fin, t_th),
                          torch.minimum(t_dl, t_arr))
-    jump = DYNAMICS_JUMP_TICKS if with_dynamics else MAX_JUMP_TICKS
+    # the pilot estimate drifts continuously too (rem = f_hat - sent), so
+    # learned mode keeps the same re-evaluation cadence
+    jump = DYNAMICS_JUMP_TICKS if (with_dynamics or with_sampling) \
+        else MAX_JUMP_TICKS
     n_ev = torch.where(torch.isfinite(t_ev),
                        torch.ceil((t_ev - state.t0) / delta - 1e-4),
                        tickf + jump)
@@ -425,14 +457,29 @@ def _tick(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
     return _select(can, new, state)
 
 
+def _norm_features(features: tuple) -> tuple:
+    """A features tuple in the full 5-slot form `(per_flow_wc,
+    with_dynamics, with_ablations, wc_maxmin, with_sampling)`: a shorter
+    tuple pads with False (reference `jax_engine.py:513-522`)."""
+    f = tuple(features)
+    if not 1 <= len(f) <= 5:
+        raise ValueError(f"features tuple of length {len(f)}")
+    return f + (False,) * (5 - len(f))
+
+
+def _switches(features: tuple) -> dict:
+    """`_tick`'s keyword structure switches of a features tuple."""
+    names = ("per_flow_wc", "with_dynamics", "with_ablations", "wc_maxmin",
+             "with_sampling")
+    return dict(zip(names, _norm_features(features)))
+
+
 def _run_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
                chunk: int, features: tuple) -> EngineState:
     """`chunk` event steps for every lane, with no host read."""
-    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
+    sw = _switches(features)
     for _ in range(chunk):
-        state = _tick(state, tb, ep, per_flow_wc=per_flow_wc,
-                      with_dynamics=with_dynamics,
-                      with_ablations=with_ablations, wc_maxmin=wc_maxmin)
+        state = _tick(state, tb, ep, **sw)
     return state
 
 
@@ -474,21 +521,19 @@ def features_for(params: SchedulerParams, *, fidelity: str = "flow",
                  topology=None,
                  clairvoyant: "bool | None" = None) -> tuple:
     """The structure switches `(per_flow_wc, with_dynamics,
-    with_ablations, wc_maxmin)` `_tick` runs with, derived as the
-    reference's `features_for` derives its first four (`wc_maxmin` from
-    a `LeafSpine`'s `wc_fill`); raises for the parts of the reference
-    that are not ported yet."""
+    with_ablations, wc_maxmin, with_sampling)` `_tick` runs with, derived
+    as the reference's `features_for` derives them (`wc_maxmin` from a
+    `LeafSpine`'s `wc_fill`). The §4.3 re-queue splits by clairvoyance:
+    `with_dynamics` builds the exact finished-flow median (known sizes),
+    `with_sampling` the pilot estimate (learned sizes)."""
     if fidelity not in ("flow", "coflow"):
         raise ValueError(f"unknown fidelity {fidelity!r}")
-    dyn = (params.dynamics_requeue if dynamics_requeue is None
-           else dynamics_requeue)
-    cl = params.clairvoyant if clairvoyant is None else clairvoyant
-    if dyn and not cl:
-        raise NotImplementedError(
-            "non-clairvoyant (pilot-sampling) re-queue is not ported yet: "
-            "ROADMAP queue A item 6")
-    return (fidelity == "flow", bool(dyn), not (lcof and per_flow_threshold),
-            wc_fill_of(topology) == "maxmin")
+    dyn = bool(params.dynamics_requeue if dynamics_requeue is None
+               else dynamics_requeue)
+    cl = bool(params.clairvoyant if clairvoyant is None else clairvoyant)
+    return (fidelity == "flow", dyn and cl,
+            not (lcof and per_flow_threshold),
+            wc_fill_of(topology) == "maxmin", dyn and not cl)
 
 
 def simulate_batch(traces: "Sequence | TraceBatch",
@@ -514,8 +559,13 @@ def simulate_batch(traces: "Sequence | TraceBatch",
         params, fidelity=fidelity, dynamics_requeue=dynamics_requeue,
         lcof=lcof, per_flow_threshold=per_flow_threshold,
         topology=topology, clairvoyant=clairvoyant)
+    with_sampling = features[4]
     tb = traces if isinstance(traces, TraceBatch) else \
-        pack(traces, port_bw=params.port_bw, topology=topology)
+        pack(traces, port_bw=params.port_bw, topology=topology,
+             sampling=with_sampling, pilot_frac=params.pilot_frac)
+    if with_sampling and tb.pilot is None:
+        raise ValueError("a non-clairvoyant replay needs a TraceBatch "
+                         "packed with sampling=True")
     if max_ticks is None:
         max_ticks = default_max_ticks(tb, params.delta)
     ep = EngineParams.from_scheduler(
@@ -533,27 +583,35 @@ def simulate_sweep(trace, params_list: Sequence[SchedulerParams], *,
                    device=None) -> EngineResult:
     """Replay ONE trace under M parameter settings as one batched
     computation (lane i = setting i). Settings must share num_queues and
-    port_bw; δ is per setting and the tick budget covers the smallest."""
+    port_bw; δ is per setting and the tick budget covers the smallest.
+    Known and learned settings mix (the pilot estimate is built in when
+    any setting learns; a known lane's `clairvoyant` leaf is then 1.0),
+    and then they must share `pilot_frac` (reference
+    `jax_engine.py:689-714`)."""
     if fidelity not in ("flow", "coflow"):
         raise ValueError(f"unknown fidelity {fidelity!r}")
     if len({len(p.thresholds()) for p in params_list}) != 1:
         raise ValueError("sweep settings must share num_queues")
     if len({p.port_bw for p in params_list}) != 1:
         raise ValueError("sweep settings must share port_bw")
+    sampling_any = any(not p.clairvoyant for p in params_list)
+    if sampling_any and len({p.pilot_frac for p in params_list}) > 1:
+        # the pilot layout is packed into the row the sweep repeats
+        raise ValueError("sweep settings must share pilot_frac")
     dev = resolve_device(device)
     feats = [features_for(p, fidelity=fidelity, topology=topology)
              for p in params_list]
     features = (fidelity == "flow", any(f[1] for f in feats), False,
-                feats[0][3])
-    tb1 = pack([trace], port_bw=params_list[0].port_bw, topology=topology)
+                feats[0][3], any(f[4] for f in feats))
+    tb1 = pack([trace], port_bw=params_list[0].port_bw, topology=topology,
+               sampling=sampling_any, pilot_frac=params_list[0].pilot_frac)
     B = len(params_list)
     tb = TraceBatch(*(None if a is None else np.repeat(a, B, axis=0)
                       for a in tb1))
     eps = [EngineParams.from_scheduler(p, device=dev) for p in params_list]
-    ep = EngineParams(
-        co.DynCoordParams(*(torch.stack(xs) for xs in
-                            zip(*(e.dp for e in eps)))),
-        torch.stack([e.delta for e in eps]))
+    if sampling_any:
+        eps = [e._replace(dp=e.dp.known()) for e in eps]
+    ep = tree_map(lambda *xs: torch.stack(xs), *eps)
     min_delta = min(p.delta for p in params_list)
     if max_ticks is None:
         max_ticks = default_max_ticks(tb, min_delta)
@@ -623,12 +681,9 @@ def _session_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams,
                    n_end: torch.Tensor, steps: int, *,
                    features: tuple) -> EngineState:
     """`steps` session event steps of every lane, with no host read."""
-    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
+    sw = _switches(features)
     for _ in range(steps):
-        state = _tick(state, tb, ep, per_flow_wc=per_flow_wc,
-                      with_dynamics=with_dynamics,
-                      with_ablations=with_ablations, wc_maxmin=wc_maxmin,
-                      n_end=n_end)
+        state = _tick(state, tb, ep, n_end=n_end, **sw)
     return state
 
 
@@ -641,7 +696,7 @@ def _lanes_open(state: EngineState, n_end: torch.Tensor) -> torch.Tensor:
 
 def session_advance(state: EngineState, tb: TraceBatch, ep: EngineParams,
                     *, n_end, chunk: int = 32,
-                    features: tuple = (True, True, False, False),
+                    features: tuple = (True, True, False, False, False),
                     max_steps: int = 10_000_000):
     """Step a session slab until every lane has reached its tick horizon
     `n_end` (a scalar or a (B,) host array of slab-relative ticks) or
@@ -674,22 +729,25 @@ def session_advance(state: EngineState, tb: TraceBatch, ep: EngineParams,
 
 def session_plan_tick(state: EngineState, tb: TraceBatch,
                       ep: EngineParams, *,
-                      features: tuple = (True, False, False, False),
+                      features: tuple = (True, False, False, False, False),
                       row_mask: Optional[np.ndarray] = None):
     """One coordinator tick on the slab without integrating rates, the
     wave-planning mode (reference `jax_engine.py:968-1006`). Rows outside
     `row_mask` (B,) are exact no-ops and admit nothing; a planning row's
     pending capped interval is dropped. Returns (state with the post-tick
     coordinator carry and tick + 1, admitted (B, C) bool)."""
-    per_flow_wc, with_dynamics, with_ablations, wc_maxmin = features
+    sw = _switches(features)
     tickf = state.tick.to(F32)
     now = state.t0 + tickf * ep.delta
     eps_t = 1e-3 * ep.delta
     batch, flows, _, _, _ = _views(
-        state, tb, now, eps_t, per_flow_wc=per_flow_wc,
-        with_dynamics=with_dynamics, with_ablations=with_ablations)
+        state, tb, now, eps_t, per_flow_wc=sw["per_flow_wc"],
+        with_dynamics=sw["with_dynamics"],
+        with_ablations=sw["with_ablations"],
+        with_sampling=sw["with_sampling"])
     coord, out = co.tick_core(state.coord, batch, now, ep.dp, flows=flows,
-                              wc_fill="maxmin" if wc_maxmin else "greedy")
+                              wc_fill="maxmin" if sw["wc_maxmin"]
+                              else "greedy")
     new = state._replace(coord=coord, tick=state.tick + 1)
     if state.pend_next is not None:
         new = new._replace(pend_next=torch.zeros_like(state.pend_next))
@@ -716,24 +774,17 @@ def from_reference(tb, params, state=None, *, device=None):
     pend_sent, pend_tick, pend_next: a `SessionPool.host_view()` state).
     Leaves may be numpy or anything `np.asarray` reads. Returns (tb,
     params, state) on `device`, with `params` broadcast to the batch's
-    lanes and `state` None when none was given. Big-switch and
-    leaf-spine batches are carried; raises for pilot sampling, which is
-    not ported yet."""
+    lanes and `state` None when none was given. Big-switch, leaf-spine
+    and piloted batches are carried, and the `clairvoyant` leaf of a
+    learned or mixed setting (None stays None)."""
     dev = resolve_device(device)
-    if getattr(tb, "pilot", None) is not None:
-        raise NotImplementedError(
-            "pilot-sampling batches are not ported yet: ROADMAP queue A "
-            "item 6")
     t_tb = to_device(tb, dev)
     B = t_tb.cid.shape[0]
     dp = params.dp
-    clair = getattr(dp, "clairvoyant", None)
-    if clair is not None and (np.asarray(clair) <= 0).any():
-        raise NotImplementedError(
-            "non-clairvoyant lanes are not ported yet: ROADMAP queue A "
-            "item 6")
-    t_dp = co.DynCoordParams(*(_leaf(getattr(dp, f), dev, F32)
-                               for f in co.DynCoordParams._fields))
+    t_dp = co.DynCoordParams(*(
+        None if getattr(dp, f, None) is None
+        else _leaf(getattr(dp, f), dev, F32)
+        for f in co.DynCoordParams._fields))
     t_ep = EngineParams(t_dp, _leaf(params.delta, dev, F32)).lanes(B)
     t_state = None
     if state is not None:

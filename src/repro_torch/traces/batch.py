@@ -24,7 +24,9 @@ Lf for "touches no shared link", per-leaf link capacities, and the
 (cid, link)-sorted permutations with searchsorted group bounds that
 make per-(coflow, link) live counts one segment sum. On the big switch
 (``topology`` None or `BigSwitch`) the link fields are zero-width.
-``pilot`` stays None: pilot sampling is a later slice of the port.
+``pack(..., sampling=True)`` also writes the non-clairvoyant pilot mask
+(`core.sampling`); without it ``pilot`` is None and the tick leaves the
+pilot estimate out.
 
 Pad sizes round up to multiples (flows: 64, coflows: 16).
 """
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coflow import Trace
+from repro_torch.core.sampling import pilot_mask
 from repro_torch.fabric.state import FlowTable
 from repro_torch.fabric.topology import leaf_links_for
 
@@ -89,7 +92,9 @@ class TraceBatch(NamedTuple):
     hi_up: np.ndarray       # (B, C, Lf) int32 group end
     lo_dn: np.ndarray       # (B, C, Lf) int32
     hi_dn: np.ndarray       # (B, C, Lf) int32
-    pilot: np.ndarray | None = None  # pilot sampling: not packed (None)
+    # non-clairvoyant pilot layout (core.sampling): each coflow's first
+    # K_c flows in slab order are its pilots; None = sampling left out
+    pilot: np.ndarray | None = None  # (B, F) bool
 
     @property
     def num_traces(self) -> int:
@@ -115,10 +120,12 @@ class TraceBatch(NamedTuple):
 
 
 def empty_batch(num_rows: int, *, flow_capacity: int, coflow_capacity: int,
-                port_capacity: int, leaf_links: int = 0) -> TraceBatch:
+                port_capacity: int, leaf_links: int = 0,
+                sampling: bool = False) -> TraceBatch:
     """An all-padding TraceBatch: every row is a blank row (no valid
     coflows or flows), filled in place by `pack_row`. `leaf_links` is
-    the Lf of the link layout (0 = big switch)."""
+    the Lf of the link layout (0 = big switch); `sampling` adds the
+    all-False pilot mask."""
     B, F = num_rows, flow_capacity
     C, P = coflow_capacity, port_capacity
     Lf = leaf_links
@@ -153,6 +160,7 @@ def empty_batch(num_rows: int, *, flow_capacity: int, coflow_capacity: int,
         hi_up=np.zeros((B, C, Lf), np.int32),
         lo_dn=np.zeros((B, C, Lf), np.int32),
         hi_dn=np.zeros((B, C, Lf), np.int32),
+        pilot=np.zeros((B, F), bool) if sampling else None,
     )
 
 
@@ -189,13 +197,18 @@ def blank_row(tb: TraceBatch, b: int) -> None:
     tb.hi_up[b] = 0
     tb.lo_dn[b] = 0
     tb.hi_dn[b] = 0
+    if tb.pilot is not None:
+        tb.pilot[b] = False
 
 
 def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
-             arrival_rank=None, topology=None) -> None:
+             arrival_rank=None, topology=None,
+             pilot_frac: float = 0.1) -> None:
     """Write one FlowTable into row `b` in place (blanking it first),
     recomputing the row's host-side permutations and segment layouts,
-    and the link layout when `topology` is a `LeafSpine`.
+    the link layout when `topology` is a `LeafSpine`, and the pilot mask
+    (the first ceil(`pilot_frac` x width) flows of each coflow) when the
+    batch carries one.
     `arrival_rank` overrides the row's arrival argsort with the caller's
     exact FIFO ranks: an online session's ranks are session-global
     submission ranks, which must survive re-packs of the still-live
@@ -244,6 +257,8 @@ def pack_row(tb: TraceBatch, b: int, t: FlowTable, *,
     # that coflow's real flows.
     tb.perm_size[b] = np.lexsort(
         (tb.size[b], ~tb.flow_valid[b], tb.cid[b])).astype(np.int32)
+    if tb.pilot is not None:
+        tb.pilot[b, :f] = pilot_mask(t.cid, t.flow_lo, t.width, pilot_frac)
     # leaf-spine link layout (blank_row already reset it to "no links")
     Lf = tb.num_leaf_links
     need = 0 if topology is None else topology.leaf_count(t.num_ports)
@@ -295,12 +310,15 @@ def pack(traces: Sequence[Union[Trace, FlowTable]], *,
          port_bw: float = None,
          flow_multiple: int = 64, coflow_multiple: int = 16,
          flow_capacity: int = 0, coflow_capacity: int = 0,
-         port_capacity: int = 0, topology=None) -> TraceBatch:
+         port_capacity: int = 0, topology=None,
+         sampling: bool = False, pilot_frac: float = 0.1) -> TraceBatch:
     """Pad/pack traces (or FlowTables) into one host-side TraceBatch.
 
     `port_bw` is required when packing `Trace` objects (FlowTables carry
     their own per-port bandwidths). DAG stage dependencies are rejected.
-    `topology` (None, `BigSwitch` or `LeafSpine`) sets the link layout.
+    `topology` (None, `BigSwitch` or `LeafSpine`) sets the link layout;
+    `sampling` packs the pilot mask of `pilot_frac` (non-clairvoyant
+    replays).
     """
     tables: List[FlowTable] = []
     for t in traces:
@@ -325,9 +343,10 @@ def pack(traces: Sequence[Union[Trace, FlowTable]], *,
     P = max(max(t.num_ports for t in tables), port_capacity)
     Lf = leaf_links_for(topology, P)
     tb = empty_batch(B, flow_capacity=F, coflow_capacity=C,
-                     port_capacity=P, leaf_links=Lf)
+                     port_capacity=P, leaf_links=Lf, sampling=sampling)
     for b, t in enumerate(tables):
-        pack_row(tb, b, t, topology=topology if Lf else None)
+        pack_row(tb, b, t, topology=topology if Lf else None,
+                 pilot_frac=pilot_frac)
     return tb
 
 

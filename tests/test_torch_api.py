@@ -166,7 +166,6 @@ def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
     (dict(fidelity="packet"), ValueError, "unknown fidelity"),
     (dict(mechanisms={"bogus": True}), ValueError, "unknown mechanism"),
     (dict(topology=object()), TypeError, "BigSwitch, LeafSpine"),
-    (dict(clairvoyance=False), NotImplementedError, "item 6"),
     (dict(traces=(_trace(),)), ValueError, "exactly one trace source"),
 ])
 def test_front_door_errors(kw, err, match):

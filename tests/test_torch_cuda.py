@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
 K4 SSD scan, K5 attention) against their plain PyTorch versions, on the
-card, a 2-layer full-width Mamba2 serve with K4 against the plain path,
-and a 2-layer full-width StarCoder2 serve through K5 against the JAX
-package's golden. Every
+card (learned-size ticks among them), the replays, pools and a small
+`CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
+serve with K4 against the plain path, and a 2-layer full-width
+StarCoder2 serve through K5 against the JAX package's golden. Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
 
@@ -478,6 +479,129 @@ def test_session_pool_launches_equal_loop_steps(cuda, monkeypatch):
     counts = ops.launch_counts()
     assert steps[0] > 0
     assert counts["contention"] == counts["tick_walk"] == steps[0]
+    assert counts["maxmin"] == 0
+
+
+# ---- learned (non-clairvoyant) sizes and the serving front door ----------
+
+LEARNED = SchedulerParams(clairvoyant=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hpl,wc_fill", [(0, "greedy"), (4, "maxmin")])
+def test_learned_tick_kernels_match_plain(cuda, hpl, wc_fill):
+    """A tick with the pilot re-queue inputs and a per-lane clairvoyant
+    leaf (learned, known, learned) through K1 + K2 (+ K3) equals the
+    tick with the plain versions, output by output, exactly."""
+    B, C, P = 3, 512, 150
+    d = random_tick_inputs(B, C, P, seed=21 + hpl, params=UNIT,
+                           hosts_per_leaf=hpl)
+    rng = np.random.default_rng(hpl)
+    state, batch, fv = torch_tick_args(d, cuda)
+    batch = batch._replace(
+        s_mixed=torch.as_tensor(d["active"] & (rng.uniform(size=(B, C))
+                                               < 0.5), device=cuda),
+        s_m=torch.as_tensor((d["m"] * rng.uniform(0.0, 30.0, (B, C))
+                             ).astype(np.float32), device=cuda))
+    dp = co.DynCoordParams.from_cp(co.CoordParams.from_params(UNIT),
+                                   cuda).lanes(B)._replace(
+        clairvoyant=torch.tensor([0.0, 1.0, 0.0], device=cuda))
+    now = torch.full((B,), float(d["now"]), device=cuda)
+    _, got = co.tick_core(state, batch, now, dp, flows=fv, wc_fill=wc_fill)
+    _, want = co.tick_core(state, batch, now, dp, flows=fv,
+                           wc_fill=wc_fill, force="ref")
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("maxmin", [False, True])
+def test_learned_fleet_replay_on_card_matches_cpu(cuda, maxmin):
+    """A learned replay on the card against the CPU: the same events;
+    CCTs at ROADMAP C9's bar (the pilot sums' prefix-sum rounding
+    follows the device's scan order)."""
+    from repro_torch.api import Scenario, run
+    from repro_torch.fabric.topology import LeafSpine
+    from repro_torch.traces.synth import tiny_trace
+
+    fleet = tuple(tiny_trace(16, 12, seed=s) for s in range(3))
+    kw = dict(traces=fleet, params=LEARNED,
+              topology=LeafSpine(4, 4.0, "maxmin") if maxmin else None)
+    gpu = run(Scenario(**kw))
+    cpu = run(Scenario(device="cpu", **kw))
+    assert gpu.events == cpu.events
+    np.testing.assert_allclose(gpu.cct, cpu.cct, rtol=1e-2,
+                               atol=2 * LEARNED.delta)
+
+
+def _serve(device):
+    """A 3-row `CoflowServer` pinned with sampling: a known tenant, a
+    learned one, and a known one under a defer quota, streaming
+    tiny_trace(16, 12) in 16 δ advances. Returns ({tenant: per-coflow
+    CCTs}, stats, launch counts, event steps of the session loops)."""
+    from repro_torch.fabric import engine as eng
+    from repro_torch.launch.serve import CoflowServer, TenantQuota
+    from repro_torch.traces.synth import tiny_trace
+
+    p = SchedulerParams()
+    srv = CoflowServer(p, num_ports=12, max_tenants=3, device=device,
+                       features=(True, True, False, False, True))
+    srv.register("known")
+    srv.register("learned", mechanisms={"clairvoyant": False})
+    srv.register("quota", quota=TenantQuota(max_live_coflows=3,
+                                            policy="defer"))
+    queues = {t: sorted(tiny_trace(16, 12, seed=i).coflows,
+                        key=lambda c: (c.arrival, c.cid))
+              for i, t in enumerate(srv.tenants)}
+    cid_of = {t: {} for t in queues}
+    cct = {t: {} for t in queues}
+    steps, real = [0], eng.session_advance
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        steps[0] += out[1]
+        return out
+
+    eng.session_advance = spy
+    ops.reset_launches()
+    try:
+        for _ in range(20_000):
+            clock = srv._tenants["known"].now + 16 * p.delta
+            for t, q in queues.items():
+                while q and q[0].arrival < clock:
+                    c = q.pop(0)
+                    for h in srv.submit(t, [c]):
+                        cid_of[t][h] = c.cid
+            srv.advance(16 * p.delta)
+            for t in queues:
+                for d in srv.poll(t):
+                    cct[t][cid_of[t].get(d.handle, d.handle)] = d.cct
+            if not any(queues.values()) and not any(
+                    srv.num_live(t) for t in queues) and \
+                    not srv.stats()["deferred_pending"]:
+                break
+    finally:
+        eng.session_advance = real
+    return cct, srv.stats(), ops.launch_counts(), steps[0]
+
+
+@pytest.mark.gpu
+def test_coflow_server_on_card_matches_cpu(cuda):
+    """The server on the card against the same script on the CPU: the
+    known tenant bit for bit, the learned one at C9's bar, the same
+    stats; K1 and K2 launch once per event step of the session loops."""
+    gpu, gst, counts, steps = _serve(cuda)
+    cpu, cst, _, _ = _serve("cpu")
+    assert gst == cst
+    assert gpu["known"] == cpu["known"] and len(gpu["known"]) == 16
+    keys = sorted(cpu["learned"])
+    assert sorted(gpu["learned"]) == keys and len(keys) == 16
+    np.testing.assert_allclose([gpu["learned"][k] for k in keys],
+                               [cpu["learned"][k] for k in keys],
+                               rtol=1e-2, atol=2 * LEARNED.delta)
+    assert steps > 0
+    assert counts["contention"] == counts["tick_walk"] == steps
     assert counts["maxmin"] == 0
 
 

@@ -154,8 +154,9 @@ def test_jax_mid_run_state_finishes_in_the_port():
 
 
 def test_from_reference_refuses_what_is_not_ported():
-    """Leaf-spine batches and session states are carried now; pilot
-    sampling (batches and learned lanes) is still refused."""
+    """Everything the JAX package replays is carried now: leaf-spine
+    batches, piloted batches and learned lanes (the `clairvoyant` leaf),
+    and session states."""
     from repro.fabric.topology import LeafSpine
 
     tr = [jax_family_trace("uniform", seed=1)]
@@ -167,14 +168,16 @@ def test_from_reference_refuses_what_is_not_ported():
     assert tb.bw_up.shape[-1] == leaf.num_leaf_links > 0
     np.testing.assert_array_equal(tb.link_up.numpy(), leaf.link_up)
     piloted = jbatch.pack(tr, port_bw=1.0, sampling=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        engine.from_reference(piloted, ep, device="cpu")
-    tb = jbatch.pack(tr, port_bw=1.0)
     learned = jax.tree_util.tree_map(
         np.asarray, jax_engine.EngineParams.from_scheduler(
             _jp(FULL), clairvoyant=False))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        engine.from_reference(tb, learned, device="cpu")
+    tb, lep, _ = engine.from_reference(piloted, learned, device="cpu")
+    np.testing.assert_array_equal(tb.pilot.numpy(), piloted.pilot)
+    assert tb.pilot.dtype == torch.bool
+    np.testing.assert_array_equal(lep.dp.clairvoyant.numpy(), [0.0])
+    _, kep, _ = engine.from_reference(piloted, ep, device="cpu")
+    assert kep.dp.clairvoyant is None
+    tb = jbatch.pack(tr, port_bw=1.0)
     state = jax.tree_util.tree_map(
         np.asarray, jax_engine._init_batch(tb, jax_engine.EngineParams
                                            .from_scheduler(_jp(FULL)),

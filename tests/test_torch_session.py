@@ -16,7 +16,8 @@ parameters, 6 ports):
 * a JAX session row holding a pending capped interval, carried across
   with `from_reference`, finishes in the port's `session_advance` with
   the JAX session's CCTs bit for bit;
-* the parts not ported yet raise, naming their ROADMAP queue A item.
+* the parts not ported yet raise, naming their ROADMAP queue A item
+  (learned-size sessions run: tests/test_torch_sampling.py).
 """
 import dataclasses
 
@@ -233,10 +234,6 @@ def test_session_rejects_bad_input():
                           device="cpu"), "item 3b"),
     (lambda: SessionPool(PARAMS, num_ports=4, shards=2, device="cpu"),
      "item 8"),
-    (lambda: SaathSession(dataclasses.replace(PARAMS, clairvoyant=False),
-                          num_ports=4, device="cpu"), "item 6"),
-    (lambda: SessionPool(PARAMS, num_ports=4, device="cpu").session(
-        mechanisms={"clairvoyant": False}), "item 6"),
 ])
 def test_unported_parts_raise_naming_their_item(make, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -136,7 +136,7 @@ def test_default_max_ticks_folds_in_the_links(oversub):
 
 def test_features_carry_the_fill():
     p = SchedulerParams()
-    assert engine.features_for(p) == (True, True, False, False)
+    assert engine.features_for(p) == (True, True, False, False, False)
     assert engine.features_for(p, topology=TOPO_4)[3] is False
     assert engine.features_for(p, topology=MAXMIN_4)[3] is True
     with pytest.raises(TypeError):
