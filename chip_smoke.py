@@ -15,7 +15,7 @@ pilot-learned coflow sizes, and the `repro_torch.launch.serve.
 CoflowServer` front door — and holds each hand-written CUDA kernel of
 those paths against its plain PyTorch version on the same inputs:
 
-1. the card's name and power limit; build the five kernels with nvcc
+1. the card's name and power limit; build the six kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
    started together) and print nvcc's register and shared-memory
    report and the build time;
@@ -32,16 +32,18 @@ those paths against its plain PyTorch version on the same inputs:
    known and a learned row;
 4. the big-switch main path: the 16-trace fleet through `run(Scenario(
    ...))`, with the kernels' launch counters set to 0 just before and
-   read just after (K1 and K2 must equal the event steps); per-lane avg
-   CCT, events, ticks, wall seconds and peak device memory; every real
-   coflow finished, every byte delivered; K3, K4 and K5 ran 0 times.
-   Tick inputs are captured on the way (a spy on `tick_core` that clones
-   its arguments);
+   read just after (K1 and K2 must equal the event steps, K6 the
+   segment sums those steps take, `segment_sums_per_step`); per-lane
+   avg CCT, events, ticks, wall seconds and peak device memory; every
+   real coflow finished, every byte delivered; K3, K4 and K5 ran 0
+   times. Tick inputs are captured on the way (a spy on `tick_core`
+   that clones its arguments, and the segment sums' inputs before it);
 5. whole-path parity: lanes 0 and 1 within 1% of the JAX package's avg
    CCT on the same traces (`tests/data/torch_port_fb_golden.json`);
 6. on the heaviest captured ticks, the whole tick with the kernels
    against the tick with the plain versions (order, queue, contention,
-   expiry and admission exact; rates to rtol 1e-6), and K1's and K2's
+   expiry and admission exact; rates to rtol 1e-6; K6 on the tick's
+   segment-sum inputs bit for bit, as in 9, 18 and 19), and K1's and K2's
    time at the main path's shapes beside the plain version, the bound
    and (K1) one PyTorch call computing the same function; K1 on the
    main path's bool incidence and on its f32 cast, with the CUDA
@@ -129,9 +131,9 @@ those paths against its plain PyTorch version on the same inputs:
    `LeafSpine(4, 4.0, "maxmin")`, streamed as in 16, bit for bit the
    port's offline `run` of the same traces on the card, K1 = K2 = K3 =
    the event steps; a fifth tenant under the Aalo-queue ablation
-   (`per_flow_threshold=False`) against its offline replay at ROADMAP
-   C2's bar (rtol 1e-2, atol 2δ: its float byte sums round by the
-   slab's padding);
+   (`per_flow_threshold=False`) against its offline replay bit for bit
+   (its float byte sums add in the JAX package's order through K6,
+   whatever the slab's padding);
 18. the learned fleet (`learned_main_path`): phase 4's 16 traces through
    `run(Scenario(..., clairvoyance=False))`, counters as in 4 (K1 = K2 =
    the event steps, K3 = K4 = K5 = 0), every coflow finished and byte
@@ -167,7 +169,17 @@ those paths against its plain PyTorch version on the same inputs:
    and learned rows together) with K1 and K2 against the plain versions
    as in phase 6; wall, advances, wall ms per advance (median, p99),
    `pool.io` and peak device memory (the captured ticks' clones
-   included) printed.
+   included) printed. Phases 16-19 hold K6 to the segment sums of the
+   steps their runs took, as 4 does;
+20. K6 (the engine's prefix sums, in the JAX package's scan order)
+   against `prefix_sum_ref` bit for bit on seeded rows of F = 1, 16, 17,
+   4097, 30016 and 200,000 (zeros and magnitudes from 1 to 1e9), and its
+   time at the fleet's shape on a segment-sum input of phase 4 beside
+   the plain version's, `torch.cumsum`'s (timed here only) and the bound;
+21. the port's drivers at their defaults (`drivers_phase`):
+   `benchmarks/torch_pool_throughput.py` (its bitwise and single-upload
+   gates; the speedup printed beside the reference's 4.0, read and not
+   gated), Table 2's rows (b) and (c) and `torch_api_smoke.py`.
 
 Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
@@ -242,6 +254,12 @@ DELTA_ADVANCES = 200  # one-δ advances of phase 16's budget run
 FIG_COFLOWS, FIG_PORTS = 240, 100
 # phase 19: tenants, rows and each tenant's trace depth
 SERVER_TENANTS, SERVER_ROWS, SERVER_COFLOWS = 12, 8, 128
+# phase 20: K6's row lengths (200,000 keeps its totals in the global
+# scratch instead of shared memory)
+PREFIX_LENGTHS = (1, 16, 17, 4097, 30016, 200_000)
+# phase 21: the reference's pool-throughput gate (benchmarks/
+# pool_throughput.py:236), read here, not gated
+POOL_GATE = 4.0
 
 
 def fail(msg):
@@ -543,11 +561,14 @@ def profile_serve(sess, prompts, n_decode=16):
 def capture_ticks():
     """While the block runs, clone the inputs of every CAPTURE_EVERY-th
     call of `tick_core` (the replay's and the session loop's alike) into
-    the list it yields, for `compare_ticks`."""
+    the list it yields, for `compare_ticks`, each with the inputs of the
+    segment sums (`ops.prefix_sum`, K6) the engine took since the tick
+    before it (this step's views, the last step's completions)."""
     from repro_torch.core import coordinator as co
+    from repro_torch.kernels import ops
 
-    captured, calls = [], [0]
-    real_tick_core = co.tick_core
+    captured, calls, sums = [], [0], []
+    real_tick_core, real_prefix = co.tick_core, ops.prefix_sum
 
     def spy(state, batch, now, dp, **kw):
         if calls[0] % CAPTURE_EVERY == CAPTURE_EVERY // 2:
@@ -556,15 +577,73 @@ def capture_ticks():
                                for x in t)))
             captured.append((clone(state), clone(batch), now.clone(),
                              clone(dp), clone(kw.get("flows")),
-                             kw.get("wc_fill", "greedy")))
+                             kw.get("wc_fill", "greedy"),
+                             [x.clone() for x in sums]))
         calls[0] += 1
+        sums.clear()
         return real_tick_core(state, batch, now, dp, **kw)
 
-    co.tick_core = spy
+    def prefix_spy(x, **kw):
+        sums.append(x)
+        return real_prefix(x, **kw)
+
+    co.tick_core, ops.prefix_sum = spy, prefix_spy
     try:
         yield captured
     finally:
-        co.tick_core = real_tick_core
+        co.tick_core, ops.prefix_sum = real_tick_core, real_prefix
+
+
+def segment_sums_per_step(features, leafspine):
+    """The segment sums (K6 launches) one event step of `engine._tick`
+    takes under the structure switches `features`: the sender and
+    receiver live counts and the completions' undone count; the uplink
+    and downlink counts on a leaf-spine batch; the live flows per
+    coflow (§4.3 re-queue, either form); the pilot count and byte sum
+    (learned sizes); the total bytes and the rate sum (ablations)."""
+    _, dyn, abl, _, samp = tuple(features) + (False,) * (5 - len(features))
+    return 3 + 2 * bool(leafspine) + bool(dyn or samp) + 2 * bool(samp) \
+        + 2 * bool(abl)
+
+
+@contextlib.contextmanager
+def expected_sums():
+    """While the block runs, add up the segment sums its event steps
+    take (`segment_sums_per_step` times the steps of each offline chunk
+    and each session loop); yields a one-element list holding the sum."""
+    from repro_torch.fabric import engine as eng
+
+    total = [0]
+    real_chunk, real_advance = eng._run_chunk, eng.session_advance
+
+    def leaf(tb):
+        return tb.bw_up.shape[-1] > 0
+
+    def chunk_spy(state, tb, ep, *, chunk, features):
+        total[0] += chunk * segment_sums_per_step(features, leaf(tb))
+        return real_chunk(state, tb, ep, chunk=chunk, features=features)
+
+    def advance_spy(state, tb, ep, **kw):
+        out = real_advance(state, tb, ep, **kw)
+        total[0] += out[1] * segment_sums_per_step(
+            kw.get("features", (True, True, False, False, False)),
+            leaf(tb))
+        return out
+
+    eng._run_chunk, eng.session_advance = chunk_spy, advance_spy
+    try:
+        yield total
+    finally:
+        eng._run_chunk, eng.session_advance = real_chunk, real_advance
+
+
+def check_sums(tag, counts, expected):
+    """K6 must have launched once for each segment sum of the run."""
+    if counts["prefix_sum"] != expected:
+        fail(f"[{tag}] prefix_sum launched {counts['prefix_sum']} times for "
+             f"{expected} segment sums")
+    print(f"[{tag}] K6 launches {counts['prefix_sum']} = the run's segment "
+          f"sums")
 
 
 def drive(tag, sc, fleet, coflows=COFLOWS):
@@ -580,7 +659,7 @@ def drive(tag, sc, fleet, coflows=COFLOWS):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with capture_ticks() as captured:
+    with capture_ticks() as captured, expected_sums() as sums:
         ops.reset_launches()
         try:
             res = run(sc)
@@ -601,6 +680,7 @@ def drive(tag, sc, fleet, coflows=COFLOWS):
         if abs(t.sent.sum() - t.size.sum()) > 1e-5 * t.size.sum():
             fail(f"[{tag}] lane {b}: bytes delivered differ from the "
                  f"trace's")
+    check_sums(tag, counts, sums[0])
     return res, counts, captured
 
 
@@ -618,6 +698,7 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
         return int(c[1].active.sum())
 
     heavy = sorted(captured, key=work)[-3:]
+    n_sums = 0
     if not heavy:
         fail(f"[{tag}] no tick was captured")
     if learned and any(c[1].s_mixed is None or c[3].clairvoyant is None
@@ -635,8 +716,18 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
             return fn(*a, **k)
         return f
 
-    err = {n: 0.0 for n in names}
-    for i, (st, batch, now, dp, flows, fill) in enumerate(heavy):
+    err = {n: 0.0 for n in (*names, "prefix_sum")}
+    for i, (st, batch, now, dp, flows, fill, sums) in enumerate(heavy):
+        for x in sums:
+            got_s, want_s = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+            torch.cuda.synchronize()
+            if not torch.equal(got_s.view(torch.int32),
+                               want_s.view(torch.int32)):
+                fail(f"[{tag}] captured tick {i}: K6 differs from its plain "
+                     f"version on a {tuple(x.shape)} segment-sum input")
+            err["prefix_sum"] = max(err["prefix_sum"], abs_err(got_s, want_s))
+            grabbed["prefix_sum"] = ((x,), {})
+            n_sums += 1
         for n in names:
             setattr(ops, n, grab(n, real_ops[n]))
         try:
@@ -673,7 +764,11 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
               f"coflows in {batch.active.shape[0]} lanes{pilot}): "
               f"kernels == "
               f"plain versions (max abs rate diff "
-              f"{max(err['tick_walk'], err['maxmin_rates']):.3g})")
+              f"{max(err['tick_walk'], err['maxmin_rates']):.3g}; K6 == "
+              f"its plain version bit for bit on the {len(sums)} segment "
+              f"sums before it)")
+    if not n_sums:
+        fail(f"[{tag}] no segment-sum input was captured")
     return grabbed, err
 
 
@@ -1148,11 +1243,13 @@ def pool_main_path(tag, fleet, params, offline):
     base = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.perf_counter()
-    pool = SessionPool(params, num_ports=PORTS, max_sessions=len(fleet))
-    st = PoolStream(tag, pool, fleet)
-    st.stream(16 * params.delta)
-    n_stream = len(st.walls)
-    st.drain(POOL_DRAIN)
+    with expected_sums() as sums:
+        pool = SessionPool(params, num_ports=PORTS,
+                           max_sessions=len(fleet))
+        st = PoolStream(tag, pool, fleet)
+        st.stream(16 * params.delta)
+        n_stream = len(st.walls)
+        st.drain(POOL_DRAIN)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
@@ -1193,6 +1290,7 @@ def pool_main_path(tag, fleet, params, offline):
     if io["full_uploads"] != st.growths + 1:
         fail(f"[{tag}] {io['full_uploads']} full uploads for "
              f"{st.growths} capacity growths")
+    check_sums(tag, counts, sums[0])
     del pool, st
 
     one = PoolStream(tag, SessionPool(params, num_ports=PORTS,
@@ -1240,12 +1338,13 @@ def leafspine_pool(tag, params, leaf):
                            topology=leaf, mechanisms=ablation))
     ops.reset_launches()
     t0 = time.perf_counter()
-    pool = SessionPool(params, num_ports=PORTS, max_sessions=5,
-                       topology=leaf)
-    st = PoolStream(tag, pool, traces + traces[:1],
-                    tenant_kw=[{}] * 4 + [{"mechanisms": ablation}])
-    st.stream(16 * params.delta)
-    st.drain(POOL_DRAIN)
+    with expected_sums() as sums:
+        pool = SessionPool(params, num_ports=PORTS, max_sessions=5,
+                           topology=leaf)
+        st = PoolStream(tag, pool, traces + traces[:1],
+                        tenant_kw=[{}] * 4 + [{"mechanisms": ablation}])
+        st.stream(16 * params.delta)
+        st.drain(POOL_DRAIN)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     print(f"[{tag}] leaf-spine SessionPool ({leaf}), 4 tenants x "
@@ -1261,15 +1360,18 @@ def leafspine_pool(tag, params, leaf):
     print(f"[{tag}] the 4 tenants equal the offline replay bit for bit; "
           f"the ablation tenant against its offline replay: max |Δ CCT| "
           f"{dev_abs.max():.3e} s, {int((dev_abs > 0).sum())} of "
-          f"{len(want)} differ (bar rtol 1e-2, atol 2δ)")
-    if not np.all(dev_abs <= 2 * params.delta + 1e-2 * np.abs(want)):
-        fail(f"[{tag}] the ablation tenant is outside C2's bar")
+          f"{len(want)} differ (its byte sums add in the JAX package's "
+          f"order, K6, whatever the slab's padding: bit for bit)")
+    if not np.array_equal(st.cct[4], want):
+        fail(f"[{tag}] the ablation tenant differs from its offline "
+             f"replay")
     for name in ("contention", "tick_walk", "maxmin"):
         if counts[name] != st.steps:
             fail(f"[{tag}] {name} launched {counts[name]} times for "
                  f"{st.steps} leaf-spine event steps")
     if counts["ssd_scan"] or counts["flash_attention"]:
         fail(f"[{tag}] a model kernel ran on the leaf-spine pool")
+    check_sums(tag, counts, sums[0])
     return counts
 
 
@@ -1377,6 +1479,124 @@ def learned_main_path(tag, fleet, params, leaf, known):
     return counts, lcounts, err
 
 
+def prefix_rows(B, F, seed, dev):
+    """Seeded f32 rows (B, F): about a third zeros, the rest of
+    magnitudes from 1 to 1e9 (tests/test_torch_cuda.py's `prefix_rows`)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(1.0, 10.0, (B, F)) * 10.0 ** rng.integers(0, 9, (B, F))
+    x[rng.uniform(size=(B, F)) < 0.3] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def abs_err(got, want):
+    """max |got - want| (0 for empty tensors)."""
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def prefix_sum_phase(tag, fleet_input, tick_err):
+    """Phase 20: K6 against `prefix_sum_ref` bit for bit on seeded rows
+    of PREFIX_LENGTHS, then its time at the fleet's shape on a segment-sum
+    input of phase 4's main path (`fleet_input`, (16, F)) beside the plain
+    version's, `torch.cumsum`'s (one PyTorch call computing the same
+    sums in another order; the port never calls it) and the bound (each
+    input read once, the (B, F + 1) output written once, F adds a row).
+    Returns the K6 record of the kernels line; its `max_abs_err` is the
+    largest |K6 - plain| over these rows and `tick_err`, that of the
+    captured ticks' segment sums (phases 6, 9, 18, 19)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = fleet_input.device
+    err = tick_err
+    for F in PREFIX_LENGTHS:
+        x = prefix_rows(4, F, F, dev)
+        got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+        torch.cuda.synchronize()
+        if got.shape != (4, F + 1) or not torch.equal(
+                got.view(torch.int32), want.view(torch.int32)):
+            fail(f"[{tag}] K6 differs from its plain version at (4, {F})")
+        err = max(err, abs_err(got, want))
+    print(f"[{tag}] K6 == prefix_sum_ref bit for bit at (4, F) for F in "
+          f"{PREFIX_LENGTHS} (zeros and magnitudes 1 to 1e9)")
+    x = fleet_input
+    B, F = x.shape
+    got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"[{tag}] K6 differs from its plain version on the main "
+             f"path's ({B}, {F}) input")
+    err = max(err, abs_err(got, want))
+    ms = cuda_ms(lambda: ops.prefix_sum(x), 200)
+    plain = cuda_ms(lambda: ops.prefix_sum(x, force="ref"), 20)
+    lib = cuda_ms(lambda: torch.cumsum(x, -1), 200)
+    bnd, by = bound(4 * (B * F + B * (F + 1)), B * F)
+    calls = cuda_launches(tag, lambda: ops.prefix_sum(x))
+    host = host_us(lambda: ops.prefix_sum(x))
+    # what each segment sum queued before K6: new_zeros, cumsum and cat
+    old_host = host_us(lambda: torch.cat(
+        [x.new_zeros((B, 1)), x.cumsum(-1)], dim=-1))
+    print(f"[{tag}] K6 at the fleet's shape ({B}, {F}) (a segment-sum "
+          f"input of phase 4): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"torch.cumsum {lib:.4f} ms, bound {bnd:.5f} ms ({by}); host "
+          f"{host:.2f} us a call (new_zeros + cumsum + cat: "
+          f"{old_host:.2f} us); CUDA launches a call: {calls}")
+    return {"name": "prefix_sum", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/prefix_sum.cu",
+            "replaces": "src/repro/fabric/jax_engine.py:180",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def drivers_phase(tag):
+    """Phase 21: the port's drivers on the card at their defaults:
+    `benchmarks/torch_pool_throughput.py` (16 sessions x 10 coflows;
+    its bitwise-CCT and single-upload gates hold, the speedup is printed
+    beside the reference's 4.0 and not gated), Table 2's rows (b) and
+    (c) (`torch_table2_coordinator_latency.py`, its sub-second gate at
+    4096 coflows) and `torch_api_smoke.py` (the JAX package's CCTs at
+    rtol 1e-5, the session bit for bit its offline replay)."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_api_smoke, torch_pool_throughput
+    from benchmarks import torch_table2_coordinator_latency as table2
+
+    gate = os.environ.get("SAATH_POOL_MIN_SPEEDUP")
+    os.environ["SAATH_POOL_MIN_SPEEDUP"] = "0"
+    try:
+        rec = torch_pool_throughput.main([])
+    except AssertionError as e:
+        fail(f"[{tag}] torch_pool_throughput: {e}")
+    finally:
+        if gate is None:
+            os.environ.pop("SAATH_POOL_MIN_SPEEDUP")
+        else:
+            os.environ["SAATH_POOL_MIN_SPEEDUP"] = gate
+    print(f"[{tag}] torch_pool_throughput: pooled CCTs == sequential bit "
+          f"for bit, {rec['full_uploads']} full upload; sequential "
+          f"{rec['wall_sequential']:.3f} s, pool {rec['wall_pool']:.3f} s "
+          f"(best of two warm passes; kernel builds in the cold passes "
+          f"{rec['build_seconds']:.2f} s): speedup {rec['speedup']:.3f}x "
+          f"against the reference's gate {POOL_GATE}x ("
+          f"{'met' if rec['speedup'] >= POOL_GATE else 'NOT met'}; read, "
+          f"not gated); {rec['sessions_per_sec']:.1f} sessions/s; {smi()}")
+    try:
+        rows = table2.main([])
+        smoke = torch_api_smoke.main([])
+    except AssertionError as e:
+        fail(f"[{tag}] a benchmark's gate failed: {e}")
+    for r in rows:
+        print(f"[{tag}] Table 2 {r['impl']} C={r['C']} P={r['P']}: "
+              f"{r['avg_ms']:.4f} ms (p90 {r['p90_ms']:.4f}); {r['note']}")
+    print(f"[{tag}] torch_api_smoke: avg CCT {smoke['avg_cct']:.6f} s, max "
+          f"relative deviation from the JAX package {smoke['max_rel_dev']:.3e}"
+          f"; the 3-step session equals the offline replay bit for bit")
+
+
 def server_main_path(tag, params):
     """Phase 19: the `CoflowServer` front door (see the module docstring).
     Returns the launch counts and the kernels' largest deviations from
@@ -1408,11 +1628,13 @@ def server_main_path(tag, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    steps, real = [0], eng.session_advance
+    steps, sums, real = [0], [0], eng.session_advance
 
     def spy(*a, **kw):
         out = real(*a, **kw)
         steps[0] += out[1]
+        sums[0] += out[1] * segment_sums_per_step(
+            kw["features"], a[1].bw_up.shape[-1] > 0)
         return out
 
     ops.reset_launches()
@@ -1540,6 +1762,7 @@ def server_main_path(tag, params):
                  f"{steps[0]} event steps")
     if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
         fail(f"[{tag}] K3, K4 or K5 ran on the big-switch server")
+    check_sums(tag, counts, sums[0])
     _, err = compare_ticks(tag, captured, exact_rates=False, learned=True)
     return counts, err
 
@@ -1927,6 +2150,13 @@ def main():
     svcounts, sverr = server_main_path("19", params)
     err = {k: max(err[k], eerr[k], sverr[k]) for k in err}
 
+    # ---- 20. K6: the segment sums' prefix sums -------------------------
+    (k6_x,), _ = grabbed["prefix_sum"]
+    k6 = prefix_sum_phase("20", k6_x, err["prefix_sum"])
+
+    # ---- 21. the port's drivers -----------------------------------------
+    drivers_phase("21")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
@@ -1979,6 +2209,8 @@ def main():
          "bound_ms": k5[torch.bfloat16]["bound"],
          "bound_by": k5[torch.bfloat16]["by"],
          "library_ms": k5[torch.bfloat16]["sdpa"]},
+        {**k6, "launches": total["prefix_sum"],
+         "launches_by_path": by_path["prefix_sum"]},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

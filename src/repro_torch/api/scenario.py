@@ -40,12 +40,16 @@ class Scenario:
     """A declarative scheduling experiment.
 
     Exactly one trace source must be set: `trace` (one Trace), `traces`
-    (a fleet, replayed batched) or `synth` (kwargs for
-    `traces.synth.fb_like_trace`); the JAX package's `trace_path` loader
-    is not ported. `sweep` replaces `params` with a grid of settings
-    over ONE trace. `mechanisms` holds the Fig. 10 ablation switches by
-    their shared names. `device` is where the replay runs: None = CUDA
-    (raises without a card), "cpu" = the plain path.
+    (a fleet, replayed batched), `synth` (kwargs for
+    `traces.synth.fb_like_trace`) or `trace_path` (a file in the public
+    coflow-benchmark format, `traces.loader`). `sweep` replaces `params`
+    with a grid of settings over ONE trace. `mechanisms` holds the Fig.
+    10 ablation switches by their shared names. `device` is where the
+    replay runs: None = CUDA (raises without a card), "cpu" = the plain
+    path. `warm_timing` replays twice more and reports the best warm
+    wall, with the first run's excess in `Result.compile_seconds` (on
+    the card: first-use kernel builds, which `Result.build_seconds`
+    reports apart, and the caching allocator's first growth).
     """
     policy: str = "saath"
     engine: str = "torch"
@@ -56,11 +60,13 @@ class Scenario:
     trace: Optional[Trace] = None
     traces: Optional[Tuple[Trace, ...]] = None
     synth: Optional[Mapping] = None
+    trace_path: Optional[str] = None
     # engine knobs
     fidelity: str = "flow"             # "flow" | "coflow"
     mechanisms: Optional[Mapping] = None
     topology: Optional[object] = None  # None | BigSwitch() | LeafSpine()
     device: Optional[str] = None
+    warm_timing: bool = False          # extra runs split first-run cost
     clairvoyance: Optional[bool] = None  # sugar for "clairvoyant"
     label: str = ""
 
@@ -79,6 +85,8 @@ class Scenario:
         upd(tuple(sorted((self.mechanisms or {}).items())))
         if self.synth is not None:
             upd("synth", tuple(sorted(self.synth.items())))
+        elif self.trace_path is not None:
+            upd("path", self.trace_path)
         else:
             for t in resolve_traces(self):
                 upd(t.num_ports, len(t.coflows))
@@ -93,15 +101,18 @@ class Scenario:
 def resolve_traces(sc: Scenario) -> List[Trace]:
     """Materialize the scenario's trace source (exactly one allowed)."""
     sources = [sc.trace is not None, sc.traces is not None,
-               sc.synth is not None]
+               sc.synth is not None, sc.trace_path is not None]
     if sum(sources) != 1:
         raise ValueError(
             "Scenario needs exactly one trace source: trace | traces | "
-            "synth")
+            "synth | trace_path")
     if sc.trace is not None:
         return [sc.trace]
     if sc.traces is not None:
         return list(sc.traces)
+    if sc.trace_path is not None:
+        from repro_torch.traces.loader import load_coflow_benchmark
+        return [load_coflow_benchmark(sc.trace_path)]
     from repro_torch.traces.synth import fb_like_trace
     return [fb_like_trace(**dict(sc.synth))]
 
@@ -120,6 +131,8 @@ class Result:
     num_flows: np.ndarray     # (B,) real flows per row
     steps: int                # event steps x lanes: coordinator calls
     wall_seconds: float
+    compile_seconds: float = 0.0   # warm_timing: cold - best warm wall
+    build_seconds: float = 0.0     # kernel builds (nvcc) during the run
     events: int = 0                # event steps (batched ticks) executed
     ticks: int = 0                 # max δ-grid ticks across the batch
     scenario: Optional[Scenario] = None
@@ -234,6 +247,7 @@ def check_mechanisms(mechanisms: "Mapping | None") -> dict:
 def run(scenario: Scenario) -> Result:
     """Execute a Scenario and normalize the outcome."""
     from repro_torch.fabric import engine as eng
+    from repro_torch.kernels import build as kbuild
 
     sc = scenario
     if sc.engine == "numpy":
@@ -283,9 +297,22 @@ def run(scenario: Scenario) -> Result:
         row_traces = traces
         params_rows = [sc.params] * len(traces)
 
+    built = kbuild.build_seconds
     t0 = time.perf_counter()
     eres = go()
     wall = time.perf_counter() - t0
+    built = kbuild.build_seconds - built
+    compile_s = 0.0
+    if sc.warm_timing:
+        # best of two warm runs: one-shot wall clocks on a shared host
+        # wander; the first run's excess (kernel builds, first
+        # allocations) is reported apart
+        warm = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            eres = go()
+            warm = min(warm, time.perf_counter() - t0)
+        compile_s, wall = max(wall - warm, 0.0), warm
 
     return Result(
         engine="torch", policy=sc.policy, cct=eres.cct, fct=eres.fct,
@@ -293,6 +320,7 @@ def run(scenario: Scenario) -> Result:
         num_coflows=np.array([len(t.coflows) for t in row_traces]),
         num_flows=np.array([t.num_flows for t in row_traces]),
         steps=eres.events * eres.cct.shape[0], wall_seconds=wall,
+        compile_seconds=compile_s, build_seconds=built,
         events=eres.events, ticks=eres.ticks,
         scenario=sc, traces=row_traces, params_rows=params_rows)
 

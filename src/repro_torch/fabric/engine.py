@@ -44,6 +44,7 @@ from repro_torch.core import coordinator as co
 from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric.metrics import nan_row_mean
 from repro_torch.fabric.topology import wc_fill_of
+from repro_torch.kernels import ops
 from repro_torch.traces.batch import TraceBatch, pack, to_device
 
 F32 = torch.float32
@@ -165,10 +166,12 @@ def _init_state(tb: TraceBatch) -> EngineState:
 def _segment_sum(data: torch.Tensor, lo: torch.Tensor,
                  hi: torch.Tensor) -> torch.Tensor:
     """Sum `data` (B, F) over contiguous index ranges [lo, hi) (any
-    trailing shape of lo/hi) via one cumsum and two boundary gathers.
-    Exact for 0/1 counts; float data rounds by the card's scan order."""
+    trailing shape of lo/hi) via one prefix sum (`ops.prefix_sum`, K6 on
+    the card) and two boundary gathers. The prefix sums add in the JAX
+    package's scan order, so float data rounds as the reference's does
+    on any device; 0/1 counts are exact in any order."""
     B = data.shape[0]
-    s = torch.cat([data.new_zeros((B, 1)), data.cumsum(-1)], dim=-1)
+    s = ops.prefix_sum(data)
     flat_hi, flat_lo = hi.reshape(B, -1), lo.reshape(B, -1)
     return (s.gather(1, flat_hi) - s.gather(1, flat_lo)).reshape(hi.shape)
 
@@ -278,8 +281,8 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
         # flow's size is its delivered bytes, so only observable
         # quantities are read); a coflow with no finished pilot is no
         # re-queue candidate and keeps the bytes-sent placement. p_sum
-        # is a float prefix-sum difference, as in the reference: its
-        # rounding depends on the row's layout (ROADMAP C9)
+        # is a float prefix-sum difference, summed in the reference's
+        # order
         if tb.pilot is None:
             raise ValueError("with_sampling needs a TraceBatch packed "
                              "with sampling=True (no pilot mask)")

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -40,9 +41,14 @@ SOURCES = {
     "ssd_scan": ("ssd_scan.cu", []),
     # attention is held to a float tolerance too
     "flash_attention": ("flash_attention.cu", []),
+    # the prefix sums' adds are all __fadd_rn: exact whatever the flags
+    "prefix_sum": ("prefix_sum.cu", []),
 }
 
 _loaded: dict = {}
+# wall seconds this process has spent waiting on nvcc (`build_all`), so
+# that a first run's time can report its kernel builds apart
+build_seconds = 0.0
 
 
 def check(t, name: str, shape, dtype, device) -> None:
@@ -88,10 +94,12 @@ def build_all(names=None, *, ptxas_info: bool = False) -> dict:
     nvcc process per source, all started together. Returns
     {name: nvcc output} for the sources built now (with `ptxas_info`,
     nvcc prints each kernel's registers and shared memory)."""
+    global build_seconds
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
+    t0 = time.perf_counter()
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -114,6 +122,7 @@ def build_all(names=None, *, ptxas_info: bool = False) -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+    build_seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

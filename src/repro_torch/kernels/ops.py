@@ -16,11 +16,13 @@ import torch
 from repro_torch.kernels import contention as _contention
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import maxmin as _maxmin
+from repro_torch.kernels import prefix_sum as _prefix
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import walk as _walk
 from repro_torch.kernels.ref import (WalkFlows, contention_ref,
                                      flash_attention_ref, maxmin_ref,
-                                     ssd_chunked_ref, tick_walk_ref)
+                                     prefix_sum_ref, ssd_chunked_ref,
+                                     tick_walk_ref)
 
 
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -91,13 +93,23 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def prefix_sum(x, *, force: Optional[str] = None):
+    """(B, F) f32 -> (B, F + 1) f32: a zero column, then each row's
+    inclusive prefix sums in the JAX package's scan order (see
+    `ref.prefix_sum_ref`); the engine's segment sums gather from it."""
+    if _use_kernel(x, force):
+        return _prefix.prefix_sum_cuda(x)
+    return prefix_sum_ref(x)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last `reset_launches`, by kernel."""
     return {"contention": _contention.launches,
             "tick_walk": _walk.launches,
             "maxmin": _maxmin.launches,
             "ssd_scan": _ssd.launches,
-            "flash_attention": _flash.launches}
+            "flash_attention": _flash.launches,
+            "prefix_sum": _prefix.launches}
 
 
 def reset_launches() -> None:
@@ -106,8 +118,9 @@ def reset_launches() -> None:
     _maxmin.launches = 0
     _ssd.launches = 0
     _flash.launches = 0
+    _prefix.launches = 0
 
 
 __all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",
-           "flash_attention", "WalkFlows", "launch_counts",
+           "flash_attention", "prefix_sum", "WalkFlows", "launch_counts",
            "reset_launches"]

@@ -31,6 +31,10 @@ equal bit for bit; they are no yardstick of speed.
   shifted by `q_offset`, scale on the f32 scores), which the attention
   kernel (K5) computes. The two agree where S == T or q_offset == T - S.
   Like the SSD versions they agree with the kernel to a float tolerance.
+* `prefix_sum_ref` is `jnp.cumsum` over each row as XLA's CPU backend
+  computes it (a recursive scan in blocks of 16), written as explicit
+  adds, with the leading zero column of the engine's segment sums; the
+  prefix-sum kernel (K6) repeats it add for add.
 """
 from __future__ import annotations
 
@@ -396,6 +400,44 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
-__all__ = ["BIG", "NEG_INF", "WalkFlows", "attention_ref",
+PREFIX_BLOCK = 16   # XLA's scan block on the CPU (jnp.cumsum)
+
+
+def _scan_blocks(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of each row of x (B, n) in XLA's order, as a new
+    tensor: blocks of 16 summed sequentially, the block totals scanned
+    by the same rule (recursively, until at most 16 remain), and each
+    element of a block after the first = the scanned total of the
+    blocks before it + its in-block prefix. The adds run in place on a
+    zero-padded copy, one column of every block at a time."""
+    B, n = x.shape
+    k = PREFIX_BLOCK
+    nb = -(-n // k)
+    blk = x.new_zeros((B, nb * k))
+    blk[:, :n] = x
+    blk = blk.view(B, nb, k)
+    cols = blk.unbind(-1)
+    for i in range(1, min(n, k)):
+        cols[i].add_(cols[i - 1])
+    if nb > 1:
+        before = _scan_blocks(blk[..., -1])
+        blk[:, 1:] += before[:, :-1, None]
+    return blk.view(B, nb * k)[:, :n]
+
+
+def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
+    """(B, F) f32 -> (B, F + 1) f32: a zero column, then each row's
+    inclusive prefix sums in the order of the JAX package's `jnp.cumsum`
+    on the CPU (`_scan_blocks`). No `torch.cumsum`: its order is
+    another."""
+    B, F = x.shape
+    zero = x.new_zeros((B, 1))
+    if F == 0:
+        return zero
+    return torch.cat([zero, _scan_blocks(x)], dim=-1)
+
+
+__all__ = ["BIG", "NEG_INF", "PREFIX_BLOCK", "WalkFlows", "attention_ref",
            "contention_ref", "flash_attention_ref", "maxmin_ref",
-           "maxmin_rounds", "ssd_chunked_ref", "ssd_ref", "tick_walk_ref"]
+           "maxmin_rounds", "prefix_sum_ref", "ssd_chunked_ref", "ssd_ref",
+           "tick_walk_ref"]

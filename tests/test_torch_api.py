@@ -205,7 +205,9 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    (ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    (ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    + [ROOT / "examples" / "serve_lm_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imports(path)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
-K4 SSD scan, K5 attention) against their plain PyTorch versions, on the
+K4 SSD scan, K5 attention, K6 prefix sums) against their plain PyTorch versions, on the
 card (learned-size ticks among them), the replays, pools and a small
 `CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
 serve with K4 against the plain path, and a 2-layer full-width
@@ -11,7 +11,8 @@ on the card with
 
 This file imports no JAX (the card tests need only torch). It also
 holds `random_tick_inputs`, the seeded coordinator-tick inputs that
-`tests/test_torch_coordinator.py` feeds to both packages.
+`tests/test_torch_coordinator.py` feeds to both packages, and
+`prefix_rows`, the rows `tests/test_torch_prefix_sum.py` sums in both.
 """
 import numpy as np
 import pytest
@@ -130,6 +131,15 @@ def torch_tick_args(d, device, *, flows=True):
                      dn=t(d["dn"], i64) if leaf else None) \
         if flows else None
     return state, batch, fv
+
+
+def prefix_rows(B, F, *, seed):
+    """Seeded f32 rows (B, F) for the prefix sums: about a third zeros,
+    the rest of magnitudes from 1 to 1e9."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(1.0, 10.0, (B, F)) * 10.0 ** rng.integers(0, 9, (B, F))
+    x[rng.uniform(size=(B, F)) < 0.3] = 0.0
+    return x.astype(np.float32)
 
 
 @pytest.fixture
@@ -519,8 +529,8 @@ def test_learned_tick_kernels_match_plain(cuda, hpl, wc_fill):
 @pytest.mark.parametrize("maxmin", [False, True])
 def test_learned_fleet_replay_on_card_matches_cpu(cuda, maxmin):
     """A learned replay on the card against the CPU: the same events;
-    CCTs at ROADMAP C9's bar (the pilot sums' prefix-sum rounding
-    follows the device's scan order)."""
+    CCTs at ROADMAP C9's bar (the pilot sums add in one order on both,
+    K6's; the bar stays for the rest of the float work)."""
     from repro_torch.api import Scenario, run
     from repro_torch.fabric.topology import LeafSpine
     from repro_torch.traces.synth import tiny_trace
@@ -1151,3 +1161,42 @@ def test_two_layer_full_width_starcoder2_matches_golden(cuda):
         np.testing.assert_allclose(
             [float(c[key].double().norm()) for c in cache],
             gold[f"{key}_cache_norm"], rtol=1e-4)
+
+
+# ---- K6: prefix sums in the JAX package's scan order ----------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F", [(1, 1), (3, 15), (3, 16), (2, 17),
+                                 (4, 257), (2, 4097), (16, 30016),
+                                 (2, 200_000)])
+def test_prefix_sum_kernel_matches_plain_bitwise(cuda, B, F):
+    """K6 equals `prefix_sum_ref` bit for bit (signed zeros included),
+    one launch a call; (2, 200000) keeps its totals in the global
+    scratch instead of shared memory."""
+    x = torch.from_numpy(prefix_rows(B, F, seed=F)).to(cuda)
+    before = ops.launch_counts()["prefix_sum"]
+    got = ops.prefix_sum(x)
+    assert ops.launch_counts()["prefix_sum"] == before + 1
+    want = ops.prefix_sum(x, force="ref")
+    torch.cuda.synchronize()
+    assert got.shape == (B, F + 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_prefix_sum_kernel_reads_a_strided_view(cuda):
+    """A non-contiguous (B, F) view (the engine's gathers are contiguous,
+    a caller's slice need not be) sums like its contiguous copy."""
+    x = torch.from_numpy(prefix_rows(4, 600, seed=3)).to(cuda)[:, ::2]
+    got = ops.prefix_sum(x)
+    want = ops.prefix_sum(x.contiguous(), force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_prefix_sum_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        ops.prefix_sum(torch.ones(4, 8, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        ops.prefix_sum(torch.ones(2, 4, 8, device=cuda))
