@@ -32,8 +32,10 @@ those paths against its plain PyTorch version on the same inputs:
    known and a learned row;
 4. the big-switch main path: the 16-trace fleet through `run(Scenario(
    ...))`, with the kernels' launch counters set to 0 just before and
-   read just after (K1 and K2 must equal the event steps, K6 the
-   segment sums those steps take, `segment_sums_per_step`); per-lane
+   read just after (K1 and K2 must equal the event steps; K6's
+   launches the calls those steps make, `prefix_calls_per_step`, and
+   its rows summed their segment sums times the lanes,
+   `segment_sums_per_step`); per-lane
    avg CCT, events, ticks, wall seconds and peak device memory; every
    real coflow finished, every byte delivered; K3, K4 and K5 ran 0
    times. Tick inputs are captured on the way (a spy on `tick_core`
@@ -169,13 +171,15 @@ those paths against its plain PyTorch version on the same inputs:
    and learned rows together) with K1 and K2 against the plain versions
    as in phase 6; wall, advances, wall ms per advance (median, p99),
    `pool.io` and peak device memory (the captured ticks' clones
-   included) printed. Phases 16-19 hold K6 to the segment sums of the
-   steps their runs took, as 4 does;
+   included) printed. Phases 7 and 16-19 hold K6's launches and rows
+   to the steps their runs took, as 4 does;
 20. K6 (the engine's prefix sums, in the JAX package's scan order)
-   against `prefix_sum_ref` bit for bit on seeded rows of F = 1, 16, 17,
-   4097, 30016 and 200,000 (zeros and magnitudes from 1 to 1e9), and its
-   time at the fleet's shape on a segment-sum input of phase 4 beside
-   the plain version's, `torch.cumsum`'s (timed here only) and the bound;
+   against `prefix_sum_ref` bit for bit on seeded rows of
+   `PREFIX_LENGTHS` (zeros and magnitudes from 1 to 1e9), and its time
+   on phase 4's grouped segment-sum input (3 sums x 16 lanes), on its
+   first sum's 16 rows alone and on phase 7's grouped input (5 sums),
+   each beside the plain version's, `torch.cumsum`'s (timed here only)
+   and the bound, with its CUDA launches and host time a call;
 21. the port's drivers at their defaults (`drivers_phase`):
    `benchmarks/torch_pool_throughput.py` (its bitwise and single-upload
    gates; the speedup printed beside the reference's 4.0, read and not
@@ -185,7 +189,8 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-nine main-path runs, split by path in `launches_by_path`), the script's
+nine main-path runs, split by path in `launches_by_path`; K6's record
+also lists each timed shape under `shapes`), the script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
@@ -254,9 +259,12 @@ DELTA_ADVANCES = 200  # one-δ advances of phase 16's budget run
 FIG_COFLOWS, FIG_PORTS = 240, 100
 # phase 19: tenants, rows and each tenant's trace depth
 SERVER_TENANTS, SERVER_ROWS, SERVER_COFLOWS = 12, 8, 128
-# phase 20: K6's row lengths (200,000 keeps its totals in the global
-# scratch instead of shared memory)
-PREFIX_LENGTHS = (1, 16, 17, 4097, 30016, 200_000)
+# phase 20: K6's row lengths (one tile, the chunk boundaries, the
+# fleet's, and rows with a fourth level of totals)
+PREFIX_LENGTHS = (1, 16, 17, 4095, 4096, 4097, 8193, 30016, 65537, 200_000)
+# the port's kernels by the names the profiler gives them
+PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
+                "ssd_gram<", "flash_fwd", "prefix_sum_kernel")
 # phase 21: the reference's pool-throughput gate (benchmarks/
 # pool_throughput.py:236), read here, not gated
 POOL_GATE = 4.0
@@ -498,9 +506,10 @@ def profile_chunk(fleet, params, feats, topology, label, warm_chunks=8):
 
 def report_profile(prof, wall, steps, unit):
     """Device busy time per `unit` and its share of the wall time (one
-    stream, so kernels do not overlap), kernel launches per unit and
-    the kernels with the most device time, from a torch.profiler run of
-    `steps` units that took `wall` seconds."""
+    stream, so kernels do not overlap), kernel launches per unit, the
+    kernels with the most device time and each of the port's kernels
+    (`PORT_KERNELS`) with its share of the busy time, from a
+    torch.profiler run of `steps` units that took `wall` seconds."""
     import torch
 
     rows = [e for e in prof.key_averages()
@@ -518,6 +527,12 @@ def report_profile(prof, wall, steps, unit):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[p]   {e.self_device_time_total / steps:9.1f} us/{unit} "
               f"{e.count / steps:6.1f} x  {e.key[:90]}")
+    for e in rows:
+        if any(k in e.key for k in PORT_KERNELS):
+            t = e.self_device_time_total
+            print(f"[p]   port kernel {e.key[:70]}: "
+                  f"{t / steps:.1f} us/{unit} ({t / busy_us:.3f} of busy), "
+                  f"{e.count / steps:.1f} launches per {unit}")
 
 
 def profile_serve(sess, prompts, n_decode=16):
@@ -595,39 +610,52 @@ def capture_ticks():
 
 
 def segment_sums_per_step(features, leafspine):
-    """The segment sums (K6 launches) one event step of `engine._tick`
-    takes under the structure switches `features`: the sender and
-    receiver live counts and the completions' undone count; the uplink
-    and downlink counts on a leaf-spine batch; the live flows per
-    coflow (§4.3 re-queue, either form); the pilot count and byte sum
-    (learned sizes); the total bytes and the rate sum (ablations)."""
+    """The segment sums one event step of `engine._tick` takes under the
+    structure switches `features`: the sender and receiver live counts
+    and the completions' undone count; the uplink and downlink counts on
+    a leaf-spine batch; the live flows per coflow (§4.3 re-queue, either
+    form); the pilot count and byte sum (learned sizes); the total bytes
+    and the rate sum (ablations)."""
     _, dyn, abl, _, samp = tuple(features) + (False,) * (5 - len(features))
     return 3 + 2 * bool(leafspine) + bool(dyn or samp) + 2 * bool(samp) \
         + 2 * bool(abl)
 
 
+def prefix_calls_per_step(features):
+    """The K6 calls one event step makes: the step's independent sums in
+    one, the completions' undone count, and the ablations' rate sum."""
+    abl = (tuple(features) + (False,) * 5)[2]
+    return 2 + bool(abl)
+
+
+def add_sums(total, steps, tb, features):
+    """Add `steps` event steps of batch `tb` under `features` to the K6
+    calls and rows of `total`."""
+    leaf = tb.bw_up.shape[-1] > 0
+    total["calls"] += steps * prefix_calls_per_step(features)
+    total["rows"] += steps * tb.cid.shape[0] * segment_sums_per_step(
+        features, leaf)
+
+
 @contextlib.contextmanager
 def expected_sums():
-    """While the block runs, add up the segment sums its event steps
-    take (`segment_sums_per_step` times the steps of each offline chunk
-    and each session loop); yields a one-element list holding the sum."""
+    """While the block runs, add up what the K6 counters must read for
+    its event steps (each offline chunk and each session loop): K6 calls
+    (`prefix_calls_per_step` a step) and rows summed (the segment sums of
+    a step times the batch's lanes); yields the dict of both."""
     from repro_torch.fabric import engine as eng
 
-    total = [0]
+    total = {"calls": 0, "rows": 0}
     real_chunk, real_advance = eng._run_chunk, eng.session_advance
 
-    def leaf(tb):
-        return tb.bw_up.shape[-1] > 0
-
     def chunk_spy(state, tb, ep, *, chunk, features):
-        total[0] += chunk * segment_sums_per_step(features, leaf(tb))
+        add_sums(total, chunk, tb, features)
         return real_chunk(state, tb, ep, chunk=chunk, features=features)
 
     def advance_spy(state, tb, ep, **kw):
         out = real_advance(state, tb, ep, **kw)
-        total[0] += out[1] * segment_sums_per_step(
-            kw.get("features", (True, True, False, False, False)),
-            leaf(tb))
+        add_sums(total, out[1], tb, kw.get(
+            "features", (True, True, False, False, False)))
         return out
 
     eng._run_chunk, eng.session_advance = chunk_spy, advance_spy
@@ -638,12 +666,17 @@ def expected_sums():
 
 
 def check_sums(tag, counts, expected):
-    """K6 must have launched once for each segment sum of the run."""
-    if counts["prefix_sum"] != expected:
+    """K6 must have launched once for each call the run's steps make,
+    and summed the rows of every segment sum of every lane."""
+    if counts["prefix_sum"] != expected["calls"]:
         fail(f"[{tag}] prefix_sum launched {counts['prefix_sum']} times for "
-             f"{expected} segment sums")
-    print(f"[{tag}] K6 launches {counts['prefix_sum']} = the run's segment "
-          f"sums")
+             f"{expected['calls']} calls of the run's steps")
+    if counts["prefix_sum_rows"] != expected["rows"]:
+        fail(f"[{tag}] K6 summed {counts['prefix_sum_rows']} rows for the "
+             f"run's {expected['rows']} segment-sum rows")
+    print(f"[{tag}] K6 launches {counts['prefix_sum']} = the run's calls, "
+          f"rows summed {counts['prefix_sum_rows']} = its segment sums x "
+          f"lanes")
 
 
 def drive(tag, sc, fleet, coflows=COFLOWS):
@@ -680,7 +713,7 @@ def drive(tag, sc, fleet, coflows=COFLOWS):
         if abs(t.sent.sum() - t.size.sum()) > 1e-5 * t.size.sum():
             fail(f"[{tag}] lane {b}: bytes delivered differ from the "
                  f"trace's")
-    check_sums(tag, counts, sums[0])
+    check_sums(tag, counts, sums)
     return res, counts, captured
 
 
@@ -726,7 +759,9 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
                 fail(f"[{tag}] captured tick {i}: K6 differs from its plain "
                      f"version on a {tuple(x.shape)} segment-sum input")
             err["prefix_sum"] = max(err["prefix_sum"], abs_err(got_s, want_s))
-            grabbed["prefix_sum"] = ((x,), {})
+            if "prefix_sum" not in grabbed or \
+                    x.shape[0] > grabbed["prefix_sum"][0][0].shape[0]:
+                grabbed["prefix_sum"] = ((x,), {})   # the grouped call
             n_sums += 1
         for n in names:
             setattr(ops, n, grab(n, real_ops[n]))
@@ -765,8 +800,8 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
               f"kernels == "
               f"plain versions (max abs rate diff "
               f"{max(err['tick_walk'], err['maxmin_rates']):.3g}; K6 == "
-              f"its plain version bit for bit on the {len(sums)} segment "
-              f"sums before it)")
+              f"its plain version bit for bit on the {len(sums)} K6 calls' "
+              f"inputs before it)")
     if not n_sums:
         fail(f"[{tag}] no segment-sum input was captured")
     return grabbed, err
@@ -1290,7 +1325,7 @@ def pool_main_path(tag, fleet, params, offline):
     if io["full_uploads"] != st.growths + 1:
         fail(f"[{tag}] {io['full_uploads']} full uploads for "
              f"{st.growths} capacity growths")
-    check_sums(tag, counts, sums[0])
+    check_sums(tag, counts, sums)
     del pool, st
 
     one = PoolStream(tag, SessionPool(params, num_ports=PORTS,
@@ -1371,7 +1406,7 @@ def leafspine_pool(tag, params, leaf):
                  f"{st.steps} leaf-spine event steps")
     if counts["ssd_scan"] or counts["flash_attention"]:
         fail(f"[{tag}] a model kernel ran on the leaf-spine pool")
-    check_sums(tag, counts, sums[0])
+    check_sums(tag, counts, sums)
     return counts
 
 
@@ -1496,21 +1531,25 @@ def abs_err(got, want):
     return float((got - want).abs().max()) if got.numel() else 0.0
 
 
-def prefix_sum_phase(tag, fleet_input, tick_err):
+def prefix_sum_phase(tag, grouped, leaf_grouped, tick_err):
     """Phase 20: K6 against `prefix_sum_ref` bit for bit on seeded rows
-    of PREFIX_LENGTHS, then its time at the fleet's shape on a segment-sum
-    input of phase 4's main path (`fleet_input`, (16, F)) beside the plain
-    version's, `torch.cumsum`'s (one PyTorch call computing the same
-    sums in another order; the port never calls it) and the bound (each
-    input read once, the (B, F + 1) output written once, F adds a row).
-    Returns the K6 record of the kernels line; its `max_abs_err` is the
-    largest |K6 - plain| over these rows and `tick_err`, that of the
-    captured ticks' segment sums (phases 6, 9, 18, 19)."""
+    of PREFIX_LENGTHS, then its time on phase 4's and phase 7's grouped
+    segment-sum inputs (`grouped` (3 x 16, F), `leaf_grouped` (5 x 16,
+    F)) and on the first sum's rows alone (16, F), the shape of a step's
+    single sums, each beside the plain version's, `torch.cumsum`'s (one
+    PyTorch call computing the same sums in another order; the port
+    never calls it) and the bound (each input read once, the (R, F + 1)
+    output written once, F adds a row); the CUDA launches and host
+    microseconds of a call. Returns the K6 record of the kernels line
+    (`ms` and its peers at (16, F); every shape under `shapes`); its
+    `max_abs_err` is the largest |K6 - plain| over these rows and
+    `tick_err`, that of the captured ticks' segment sums (phases 6, 9,
+    18, 19)."""
     import torch
 
     from repro_torch.kernels import ops
 
-    dev = fleet_input.device
+    dev = grouped.device
     err = tick_err
     for F in PREFIX_LENGTHS:
         x = prefix_rows(4, F, F, dev)
@@ -1522,33 +1561,39 @@ def prefix_sum_phase(tag, fleet_input, tick_err):
         err = max(err, abs_err(got, want))
     print(f"[{tag}] K6 == prefix_sum_ref bit for bit at (4, F) for F in "
           f"{PREFIX_LENGTHS} (zeros and magnitudes 1 to 1e9)")
-    x = fleet_input
-    B, F = x.shape
-    got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        fail(f"[{tag}] K6 differs from its plain version on the main "
-             f"path's ({B}, {F}) input")
-    err = max(err, abs_err(got, want))
-    ms = cuda_ms(lambda: ops.prefix_sum(x), 200)
-    plain = cuda_ms(lambda: ops.prefix_sum(x, force="ref"), 20)
-    lib = cuda_ms(lambda: torch.cumsum(x, -1), 200)
-    bnd, by = bound(4 * (B * F + B * (F + 1)), B * F)
-    calls = cuda_launches(tag, lambda: ops.prefix_sum(x))
-    host = host_us(lambda: ops.prefix_sum(x))
-    # what each segment sum queued before K6: new_zeros, cumsum and cat
-    old_host = host_us(lambda: torch.cat(
-        [x.new_zeros((B, 1)), x.cumsum(-1)], dim=-1))
-    print(f"[{tag}] K6 at the fleet's shape ({B}, {F}) (a segment-sum "
-          f"input of phase 4): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"torch.cumsum {lib:.4f} ms, bound {bnd:.5f} ms ({by}); host "
-          f"{host:.2f} us a call (new_zeros + cumsum + cat: "
-          f"{old_host:.2f} us); CUDA launches a call: {calls}")
+    B = FLEET
+    shapes = []
+    for what, x in (("a single sum's rows of phase 4", grouped[:B]),
+                    ("phase 4's grouped sums", grouped),
+                    ("phase 7's grouped sums", leaf_grouped)):
+        R, F = x.shape
+        got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"[{tag}] K6 differs from its plain version on {what} "
+                 f"({R}, {F})")
+        err = max(err, abs_err(got, want))
+        ms = cuda_ms(lambda: ops.prefix_sum(x), 200)
+        plain = cuda_ms(lambda: ops.prefix_sum(x, force="ref"), 20)
+        lib = cuda_ms(lambda: torch.cumsum(x, -1), 200)
+        bnd, by = bound(4 * (R * F + R * (F + 1)), R * F)
+        calls = cuda_launches(tag, lambda: ops.prefix_sum(x))
+        host = host_us(lambda: ops.prefix_sum(x))
+        print(f"[{tag}] K6 at ({R}, {F}), {what}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, torch.cumsum {lib:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}); host {host:.2f} us a call; CUDA "
+              f"launches a call: {calls}")
+        shapes.append({"shape": [R, F], "ms": ms, "plain_ms": plain,
+                       "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                       "host_us": host})
+    single = shapes[0]
     return {"name": "prefix_sum", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefix_sum.cu",
             "replaces": "src/repro/fabric/jax_engine.py:180",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            "max_abs_err": err, "ms": single["ms"],
+            "plain_ms": single["plain_ms"], "bound_ms": single["bound_ms"],
+            "bound_by": single["bound_by"],
+            "library_ms": single["library_ms"], "shapes": shapes}
 
 
 def drivers_phase(tag):
@@ -1628,13 +1673,12 @@ def server_main_path(tag, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    steps, sums, real = [0], [0], eng.session_advance
+    steps, sums, real = [0], {"calls": 0, "rows": 0}, eng.session_advance
 
     def spy(*a, **kw):
         out = real(*a, **kw)
         steps[0] += out[1]
-        sums[0] += out[1] * segment_sums_per_step(
-            kw["features"], a[1].bw_up.shape[-1] > 0)
+        add_sums(sums, out[1], a[1], kw["features"])
         return out
 
     ops.reset_launches()
@@ -1762,7 +1806,7 @@ def server_main_path(tag, params):
                  f"{steps[0]} event steps")
     if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
         fail(f"[{tag}] K3, K4 or K5 ran on the big-switch server")
-    check_sums(tag, counts, sums[0])
+    check_sums(tag, counts, sums)
     _, err = compare_ticks(tag, captured, exact_rates=False, learned=True)
     return counts, err
 
@@ -2152,7 +2196,8 @@ def main():
 
     # ---- 20. K6: the segment sums' prefix sums -------------------------
     (k6_x,), _ = grabbed["prefix_sum"]
-    k6 = prefix_sum_phase("20", k6_x, err["prefix_sum"])
+    (k6_lx,), _ = lgrabbed["prefix_sum"]
+    k6 = prefix_sum_phase("20", k6_x, k6_lx, err["prefix_sum"])
 
     # ---- 21. the port's drivers -----------------------------------------
     drivers_phase("21")
@@ -2210,7 +2255,9 @@ def main():
          "bound_by": k5[torch.bfloat16]["by"],
          "library_ms": k5[torch.bfloat16]["sdpa"]},
         {**k6, "launches": total["prefix_sum"],
-         "launches_by_path": by_path["prefix_sum"]},
+         "launches_by_path": by_path["prefix_sum"],
+         "rows": total["prefix_sum_rows"],
+         "rows_by_path": by_path["prefix_sum_rows"]},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

@@ -163,17 +163,23 @@ def _init_state(tb: TraceBatch) -> EngineState:
         tick=torch.zeros((B,), dtype=torch.int32, device=dev))
 
 
-def _segment_sum(data: torch.Tensor, lo: torch.Tensor,
-                 hi: torch.Tensor) -> torch.Tensor:
-    """Sum `data` (B, F) over contiguous index ranges [lo, hi) (any
-    trailing shape of lo/hi) via one prefix sum (`ops.prefix_sum`, K6 on
-    the card) and two boundary gathers. The prefix sums add in the JAX
-    package's scan order, so float data rounds as the reference's does
-    on any device; 0/1 counts are exact in any order."""
-    B = data.shape[0]
-    s = ops.prefix_sum(data)
+def _segments(s: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """Sums over contiguous index ranges [lo, hi) (any trailing shape of
+    lo/hi) from prefix sums `s` (B, F + 1): two boundary gathers."""
+    B = s.shape[0]
     flat_hi, flat_lo = hi.reshape(B, -1), lo.reshape(B, -1)
     return (s.gather(1, flat_hi) - s.gather(1, flat_lo)).reshape(hi.shape)
+
+
+def _segment_sum(data: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """Sum `data` (B, F) over contiguous index ranges [lo, hi) via one
+    prefix sum (`ops.prefix_sum`, K6 on the card) and two boundary
+    gathers. The prefix sums add in the JAX package's scan order, so
+    float data rounds as the reference's does on any device; 0/1 counts
+    are exact in any order."""
+    return _segments(ops.prefix_sum(data), lo, hi)
 
 
 def _segment_max(data: torch.Tensor, seg: torch.Tensor,
@@ -221,30 +227,64 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
     if active_gate is not None:
         active = active & active_gate[:, None]
     live = active.gather(1, tb.cid) & ~state.done & tb.flow_valid
-    livef = live.to(F32)
+
+    # the step's independent segment sums, each input written into its
+    # rows of one buffer and summed by one K6 call (rows are independent,
+    # so stacking them moves no bit): the sender and receiver live
+    # counts, the ablation's total bytes, the leaf-spine uplink and
+    # downlink counts, the live flows per coflow (a re-queue candidate
+    # still has one), the learned pilot count and byte sum. Every input
+    # is (B, F): the link permutations are packed (B, F) like the ports'
+    # (traces/batch.py)
+    leaf = tb.bw_up.shape[-1] > 0
+    names = ["cnt_s", "cnt_r"]
+    if with_ablations:
+        names.append("total")
+    if leaf:
+        names += ["cnt_up", "cnt_dn"]
+    if with_dynamics or with_sampling:
+        names.append("n_live_c")
+    if with_sampling:
+        names += ["n_p", "p_sum"]
+    B, F = live.shape
+    buf = torch.empty((len(names), B, F), dtype=F32, device=live.device)
+    rows = dict(zip(names, buf.unbind(0)))
+    livef = rows["n_live_c"].copy_(live) if "n_live_c" in rows \
+        else live.to(F32)
+    for name, perm in (("cnt_s", tb.perm_src), ("cnt_r", tb.perm_dst),
+                       ("cnt_up", tb.perm_up), ("cnt_dn", tb.perm_dn)):
+        if name in rows:
+            torch.gather(livef, 1, perm, out=rows[name])
+    if with_ablations:
+        torch.mul(state.sent, tb.flow_valid, out=rows["total"])
+    if with_sampling:
+        if tb.pilot is None:
+            raise ValueError("with_sampling needs a TraceBatch packed "
+                             "with sampling=True (no pilot mask)")
+        pdone = rows["n_p"].copy_(tb.pilot & tb.flow_valid & state.done)
+        torch.mul(pdone, tb.size, out=rows["p_sum"])
+    sums = dict(zip(names, ops.prefix_sum(buf.view(-1, F)).view(
+        len(names), B, F + 1).unbind(0)))
 
     m = _segment_max(state.sent * tb.flow_valid, tb.cid, tb.coflow_valid)
-    cnt_s = _segment_sum(livef.gather(1, tb.perm_src), tb.lo_src, tb.hi_src)
-    cnt_r = _segment_sum(livef.gather(1, tb.perm_dst), tb.lo_dst, tb.hi_dst)
-    total = _segment_sum(state.sent * tb.flow_valid, tb.flow_lo,
-                         tb.flow_hi) if with_ablations else None
+    cnt_s = _segments(sums["cnt_s"], tb.lo_src, tb.hi_src)
+    cnt_r = _segments(sums["cnt_r"], tb.lo_dst, tb.hi_dst)
+    total = _segments(sums["total"], tb.flow_lo, tb.flow_hi) \
+        if with_ablations else None
 
     # leaf-spine: per-(coflow, link) live counts through the same sorted
     # segment layout as the ports, uplinks before downlinks; left out
     # (None) on a big-switch batch (Lf = 0)
     cnt_x = bw_x = link_up = link_dn = None
-    if tb.bw_up.shape[-1]:
-        cnt_up = _segment_sum(livef.gather(1, tb.perm_up), tb.lo_up,
-                              tb.hi_up)
-        cnt_dn = _segment_sum(livef.gather(1, tb.perm_dn), tb.lo_dn,
-                              tb.hi_dn)
+    if leaf:
+        cnt_up = _segments(sums["cnt_up"], tb.lo_up, tb.hi_up)
+        cnt_dn = _segments(sums["cnt_dn"], tb.lo_dn, tb.hi_dn)
         cnt_x = torch.cat([cnt_up, cnt_dn], dim=-1)      # (B, C, 2Lf)
         bw_x = torch.cat([tb.bw_up, tb.bw_dn], dim=-1)   # (B, 2Lf)
         link_up, link_dn = tb.link_up, tb.link_dn
 
-    # live flows per coflow: a re-queue candidate still has one
-    n_live_c = _segment_sum(livef, tb.flow_lo, tb.flow_hi) \
-        if with_dynamics or with_sampling else None
+    n_live_c = _segments(sums["n_live_c"], tb.flow_lo, tb.flow_hi) \
+        if "n_live_c" in sums else None
     mixed = m_dyn = None
     if with_dynamics:
         # §4.3 remaining-length estimate: the EXACT median of finished-
@@ -283,12 +323,8 @@ def _views(state: EngineState, tb: TraceBatch, now: torch.Tensor,
         # re-queue candidate and keeps the bytes-sent placement. p_sum
         # is a float prefix-sum difference, summed in the reference's
         # order
-        if tb.pilot is None:
-            raise ValueError("with_sampling needs a TraceBatch packed "
-                             "with sampling=True (no pilot mask)")
-        pdone = (tb.pilot & tb.flow_valid & state.done).to(F32)
-        n_p = _segment_sum(pdone, tb.flow_lo, tb.flow_hi)
-        p_sum = _segment_sum(pdone * tb.size, tb.flow_lo, tb.flow_hi)
+        n_p = _segments(sums["n_p"], tb.flow_lo, tb.flow_hi)
+        p_sum = _segments(sums["p_sum"], tb.flow_lo, tb.flow_hi)
         f_hat = p_sum / n_p.clamp(min=1.0)
         rem_s = (f_hat.gather(1, tb.cid) - state.sent).clamp(min=0.0) \
             * livef

@@ -5,7 +5,8 @@ hand-written kernel (or raises: nothing falls back to the plain
 version), a CPU tensor takes the plain PyTorch version in `ref.py`.
 ``force="ref"`` runs the plain version on any device; it exists so that
 `chip_smoke.py` can hold each kernel against its plain version on the
-card. Each kernel module keeps a launch counter (`launch_counts`).
+card. Each kernel module keeps a launch counter (`launch_counts`); K6
+also counts the rows it summed.
 """
 from __future__ import annotations
 
@@ -96,20 +97,23 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 def prefix_sum(x, *, force: Optional[str] = None):
     """(B, F) f32 -> (B, F + 1) f32: a zero column, then each row's
     inclusive prefix sums in the JAX package's scan order (see
-    `ref.prefix_sum_ref`); the engine's segment sums gather from it."""
+    `ref.prefix_sum_ref`); the engine's segment sums gather from it,
+    a step's independent sums stacked into the rows of one call."""
     if _use_kernel(x, force):
         return _prefix.prefix_sum_cuda(x)
     return prefix_sum_ref(x)
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last `reset_launches`, by kernel."""
+    """Kernel launches since the last `reset_launches`, by kernel, and
+    the rows K6 summed in its launches (`prefix_sum_rows`)."""
     return {"contention": _contention.launches,
             "tick_walk": _walk.launches,
             "maxmin": _maxmin.launches,
             "ssd_scan": _ssd.launches,
             "flash_attention": _flash.launches,
-            "prefix_sum": _prefix.launches}
+            "prefix_sum": _prefix.launches,
+            "prefix_sum_rows": _prefix.rows}
 
 
 def reset_launches() -> None:
@@ -119,6 +123,7 @@ def reset_launches() -> None:
     _ssd.launches = 0
     _flash.launches = 0
     _prefix.launches = 0
+    _prefix.rows = 0
 
 
 __all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",

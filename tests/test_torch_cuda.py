@@ -1167,20 +1167,80 @@ def test_two_layer_full_width_starcoder2_matches_golden(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,F", [(1, 1), (3, 15), (3, 16), (2, 17),
-                                 (4, 257), (2, 4097), (16, 30016),
-                                 (2, 200_000)])
+                                 (4, 257), (2, 4095), (2, 4096),
+                                 (2, 4097), (2, 8193), (16, 30016),
+                                 (96, 30016), (2, 65537), (2, 200_000)])
 def test_prefix_sum_kernel_matches_plain_bitwise(cuda, B, F):
     """K6 equals `prefix_sum_ref` bit for bit (signed zeros included),
-    one launch a call; (2, 200000) keeps its totals in the global
-    scratch instead of shared memory."""
+    one launch a call counting its rows: one tile (F <= 4096), the
+    chunk boundaries, the fleet's per-sum and grouped shapes (16 and
+    6 x 16 rows), and rows with a fourth level of totals (F > 65,536)."""
     x = torch.from_numpy(prefix_rows(B, F, seed=F)).to(cuda)
-    before = ops.launch_counts()["prefix_sum"]
+    before = ops.launch_counts()
     got = ops.prefix_sum(x)
-    assert ops.launch_counts()["prefix_sum"] == before + 1
+    after = ops.launch_counts()
+    assert after["prefix_sum"] == before["prefix_sum"] + 1
+    assert after["prefix_sum_rows"] == before["prefix_sum_rows"] + B
     want = ops.prefix_sum(x, force="ref")
     torch.cuda.synchronize()
     assert got.shape == (B, F + 1)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F", [(320, 30016), (2000, 100), (1, 1 << 23)])
+def test_prefix_sum_kernel_loops_over_more_tiles_than_blocks(cuda, B, F):
+    """More tiles (or rows) than the card holds co-resident blocks (at
+    most 8 of 256 threads an SM): each block loops over several, and
+    re-reads its tiles' x in the output phase; the longest row taken
+    (2^23: five levels of totals, 2184 of them scanned in shared
+    memory)."""
+    x = torch.from_numpy(prefix_rows(B, F, seed=B)).to(cuda)
+    got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_prefix_sum_kernel_unaligned_rows_and_signed_values(cuda):
+    """Rows whose start is not 16-byte aligned (F odd: 4-byte loads) and
+    a view whose base is offset by one float, of both signs with -0.0
+    and +0.0: the plain version's bits."""
+    rng = np.random.default_rng(7)
+    x = rng.lognormal(0.0, 6.0, (5, 8195)) * rng.choice([-1.0, 1.0],
+                                                        (5, 8195))
+    x[rng.uniform(size=x.shape) < 0.3] = -0.0
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    for v in (x, x.view(-1)[1:1 + 4 * 8192].view(4, 8192)):
+        got, want = ops.prefix_sum(v), ops.prefix_sum(v, force="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf", [False, True])
+def test_event_step_sums_in_two_k6_launches(cuda, leaf):
+    """One event step of the fleet engine on the card: K6 launches twice
+    (the step's grouped sums, the completions' undone count) and sums 4
+    rows a lane on the big switch, 6 on the leaf-spine batch."""
+    from repro_torch.fabric import engine as eng
+    from repro_torch.fabric.topology import LeafSpine
+    from repro_torch.traces.batch import pack, to_device
+    from repro_torch.traces.synth import tiny_trace
+
+    p = SchedulerParams()
+    topo = LeafSpine(4, 4.0, "maxmin") if leaf else None
+    tb = to_device(pack([tiny_trace(24, 12, seed=s, load=0.8)
+                         for s in range(3)], port_bw=p.port_bw,
+                        topology=topo), cuda)
+    ep = eng.EngineParams.from_scheduler(p, device=cuda).lanes(3)
+    feats = eng.features_for(p, topology=topo)
+    state = eng._init_state(tb)
+    ops.reset_launches()
+    eng._run_chunk(state, tb, ep, chunk=1, features=feats)
+    counts = ops.launch_counts()
+    assert counts["prefix_sum"] == 2
+    assert counts["prefix_sum_rows"] == 3 * (6 if leaf else 4)
 
 
 @pytest.mark.gpu
@@ -1200,3 +1260,5 @@ def test_prefix_sum_kernel_rejects_what_it_does_not_take(cuda):
         ops.prefix_sum(torch.ones(4, 8, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         ops.prefix_sum(torch.ones(2, 4, 8, device=cuda))
+    with pytest.raises(ValueError):   # rows of at most 2^23 floats
+        ops.prefix_sum(torch.ones(1, (1 << 23) + 1, device=cuda))

@@ -39,6 +39,26 @@ def test_plain_prefix_sum_equals_jnp_cumsum_bitwise(F):
     np.testing.assert_array_equal(_bits(got[:, 1:]), _bits(want))
 
 
+@pytest.mark.parametrize("F", [17, 4097, 30016])
+def test_plain_prefix_sum_differs_from_jnp_only_on_leading_negative_zeros(F):
+    """ROADMAP C11: on rows of both signs with many -0.0, XLA's cumsum
+    gives +0.0 over a row's leading run of zeros where the plain version
+    (and K6) keeps -0.0; every other element agrees bit for bit. The
+    engine's inputs are never -0.0."""
+    rng = np.random.default_rng(F)
+    x = rng.lognormal(0.0, 3.0, (64, F)) * rng.choice([-1.0, 1.0], (64, F))
+    x[rng.uniform(size=x.shape) < 0.5] = -0.0
+    x = x.astype(np.float32)
+    want = np.asarray(jax.jit(jax.vmap(jnp.cumsum))(x))
+    got = prefix_sum_ref(torch.from_numpy(x)).numpy()[:, 1:]
+    diff = _bits(got) != _bits(want)
+    assert diff.any()
+    leading = np.cumsum(x != 0, axis=1) == 0    # only zeros up to here
+    assert not (diff & ~leading).any()
+    np.testing.assert_array_equal(_bits(got[diff]), _bits(np.float32(-0.0)))
+    np.testing.assert_array_equal(_bits(want[diff]), 0)
+
+
 def test_plain_prefix_sum_order_is_not_torch_cumsum():
     """The order matters at these magnitudes: a sequential scan
     (`torch.cumsum` on this CPU) rounds elsewhere, so an equality above
