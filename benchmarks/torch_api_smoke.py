@@ -1,15 +1,19 @@
 """Smoke of the port's scheduling front door (the counterpart of
 `benchmarks/api_smoke.py`).
 
-One tiny Scenario on the port's engine, held to the JAX package's avg
-CCT and per-coflow CCTs on the same trace (stored in
+One tiny Scenario on both of the port's engines. The batched engine
+(`engine="torch"`) is held to the JAX package's avg CCT and per-coflow
+CCTs on the same trace (stored in
 `tests/data/torch_port_api_smoke_golden.json`, regenerated by the slow
 test `tests/test_torch_drivers.py -k api_smoke_golden`) at rtol 1e-5
-(the port-vs-JAX engine bar of `tests/test_torch_engine.py`), plus a
-3-step `SaathSession` (submit / advance / poll) whose per-coflow CCTs
-must equal the port's offline replay bit for bit (the online = offline
-contract). The reference's comparison with the numpy engine waits for
-the port's numpy plane.
+(the port-vs-JAX engine bar of `tests/test_torch_engine.py`), and to the
+port's numpy engine (the host reference, its contention count on the
+same device) within the reference's 1% engine-equivalence contract
+(per-coflow rtol 1e-2 plus 2δ, avg CCT within 1%), as
+`benchmarks/api_smoke.py` holds its two engines. Then a 3-step
+`SaathSession` (submit / advance / poll) whose per-coflow CCTs must
+equal the port's offline replay bit for bit (the online = offline
+contract).
 
     PYTHONPATH=src python -m benchmarks.torch_api_smoke          # card
     PYTHONPATH=src python -m benchmarks.torch_api_smoke --device cpu
@@ -60,6 +64,17 @@ def main(argv=None) -> dict:
     assert abs(res.avg_cct[0] / gold["avg_cct"] - 1.0) <= RTOL, \
         (res.avg_cct[0], gold["avg_cct"])
 
+    # the host reference on the same trace: the 1% engine contract
+    rn = run(Scenario(policy="saath", engine="numpy", trace=trace, params=p,
+                      device=args.device, label="api-smoke"))
+    print(f"# numpy on {where}: avg_cct={rn.avg_cct[0]:.6f}s "
+          f"makespan={rn.makespan[0]:.3f}s steps={rn.steps} "
+          f"wall={rn.wall_seconds:.2f}s", file=sys.stderr)
+    np.testing.assert_allclose(got, rn.row_cct(), rtol=1e-2,
+                               atol=2 * p.delta)
+    engine_ratio = float(res.avg_cct[0] / rn.avg_cct[0])
+    assert abs(engine_ratio - 1.0) < 1e-2, engine_ratio
+
     # 3-step online session: submit the trace incrementally
     sess = SaathSession(p, num_ports=PORTS, device=args.device)
     ordered = sorted(trace.coflows, key=lambda c: c.arrival)
@@ -82,11 +97,12 @@ def main(argv=None) -> dict:
     offline = got[[c.cid for c in ordered]]
     np.testing.assert_array_equal(online, offline)
     print(f"# torch api smoke OK on {where} in {time.time() - t0:.1f}s "
-          f"(max rel deviation from the JAX package {dev:.2e}; the "
-          f"session reproduced the offline CCTs bit for bit)",
-          file=sys.stderr)
+          f"(max rel deviation from the JAX package {dev:.2e}; torch / "
+          f"numpy engine avg CCT {engine_ratio:.6f}; the session "
+          f"reproduced the offline CCTs bit for bit)", file=sys.stderr)
     return {"avg_cct": float(res.avg_cct[0]), "max_rel_dev": dev,
-            "device": where}
+            "numpy_avg_cct": float(rn.avg_cct[0]),
+            "engine_ratio": engine_ratio, "device": where}
 
 
 if __name__ == "__main__":

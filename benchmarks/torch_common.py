@@ -84,7 +84,7 @@ class Bench:
     def __post_init__(self):
         self._trace_kw = QUICK if self.quick else FULL
 
-    def scenario(self, policy: str = "saath", *,
+    def scenario(self, policy: str = "saath", *, engine: str = "torch",
                  params: Optional[SchedulerParams] = None,
                  mechanisms: Optional[dict] = None, label: str = "",
                  warm_timing: bool = False,
@@ -93,7 +93,8 @@ class Bench:
         per-benchmark overrides) on the bench's device."""
         synth = dict(self._trace_kw)
         synth.update(trace_overrides)
-        return Scenario(policy=policy, params=params or SchedulerParams(),
+        return Scenario(policy=policy, engine=engine,
+                        params=params or SchedulerParams(),
                         synth=synth, mechanisms=mechanisms, label=label,
                         device=self.device, warm_timing=warm_timing)
 
@@ -108,7 +109,7 @@ class Bench:
         if key not in self._cache:
             t0 = time.perf_counter()
             self._cache[key] = api_run(sc)
-            print(f"#   ran {sc.policy}[torch on {sc.device}]"
+            print(f"#   ran {sc.policy}[{sc.engine} on {sc.device}]"
                   f"{'/' + sc.label if sc.label else ''} in "
                   f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
             if record_as:

@@ -3,8 +3,10 @@ counterpart of `benchmarks/table2_coordinator_latency.py`).
 
 Rows:
 
-(a) the host-reference replay (the numpy engine) is not ported yet:
-    this script prints so and times nothing for it;
+(a) the host-reference Saath replay on the bench fabric (the numpy
+    engine, `run(Scenario(engine="numpy"))`, its LCoF contention count
+    on the device through K1), as the reference times it: host seconds
+    inside the policy's schedule calls over the schedule steps;
 (b) one coordinator tick of the port (`core.coordinator.schedule_tick`,
     K1 and K2 on the card) at production scale, (C, P) = (512, 150),
     (2048, 512) and (4096, 512), on the reference's random inputs, with
@@ -133,6 +135,19 @@ def fleet_row(bench: Bench, fleet: int = 0):
                     f"trace-step)"}
 
 
+def replay_row(bench: Bench):
+    """Row (a): the numpy-engine Saath replay on the bench fabric."""
+    res = bench.run("saath", engine="numpy", label="table2/replay",
+                    record_as="table2_replay")
+    return {"impl": "numpy-replay", "C": int(res.num_coflows[0]),
+            "P": res.table(0).num_ports,
+            "avg_ms": 1e3 * res.sched_seconds / max(res.steps, 1),
+            "p90_ms": float("nan"),
+            "note": f"full Fig.7 step incl. WC; steps={res.steps} "
+                    f"wall={res.wall_seconds:.3f}s (kernel builds "
+                    f"{res.build_seconds:.3f}s)"}
+
+
 def _size(text: str):
     c, p = text.lower().split("x")
     return int(c), int(p)
@@ -149,10 +164,11 @@ def main(argv=None):
                     "with --full)")
     args = ap.parse_args(argv)
     bench = Bench(quick=not args.full, device=args.device)
-    print(f"# (a) numpy-replay: not ported (the port's numpy plane, "
-          f"ROADMAP queue A item 3b(ii)); nothing timed", file=sys.stderr)
+    rows = [replay_row(bench)]
+    print(f"# (a) numpy-replay: host ms inside the policy a schedule step "
+          f"on {device_name(args.device)}", file=sys.stderr)
     built = build.build_seconds
-    rows = coordinator_rows(args.device, args.sizes, args.reps)
+    rows += coordinator_rows(args.device, args.sizes, args.reps)
     print(f"# (b) synchronised wall times on {device_name(args.device)}; "
           f"kernel builds {build.build_seconds - built:.2f}s before the "
           f"timed calls", file=sys.stderr)

@@ -12,8 +12,10 @@ ServeSession` Mamba2-1.3B and StarCoder2-3B at their published widths
 and depths; then the same 16 traces streamed online into a
 `repro_torch.api.SessionPool`, and a leaf-spine pool; then the fleet with
 pilot-learned coflow sizes, and the `repro_torch.launch.serve.
-CoflowServer` front door — and holds each hand-written CUDA kernel of
-those paths against its plain PyTorch version on the same inputs:
+CoflowServer` front door; then the port's drivers, and the event-driven
+host plane replaying one FB-like trace under each of the nine registry
+policies — and holds each hand-written CUDA kernel of those paths
+against its plain PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the six kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -175,7 +177,9 @@ those paths against its plain PyTorch version on the same inputs:
    to the steps their runs took, as 4 does;
 20. K6 (the engine's prefix sums, in the JAX package's scan order)
    against `prefix_sum_ref` bit for bit on seeded rows of
-   `PREFIX_LENGTHS` (zeros and magnitudes from 1 to 1e9), and its time
+   `PREFIX_LENGTHS` (zeros and magnitudes from 1 to 1e9) and on rows
+   of `NEG_ZERO_LENGTHS` with runs of -0.0 at the front and across the
+   block and tile boundaries (no -0.0 may come out), and its time
    on phase 4's grouped segment-sum input (3 sums x 16 lanes), on its
    first sum's 16 rows alone and on phase 7's grouped input (5 sums),
    each beside the plain version's, `torch.cumsum`'s (timed here only)
@@ -183,13 +187,29 @@ those paths against its plain PyTorch version on the same inputs:
 21. the port's drivers at their defaults (`drivers_phase`):
    `benchmarks/torch_pool_throughput.py` (its bitwise and single-upload
    gates; the speedup printed beside the reference's 4.0, read and not
-   gated), Table 2's rows (b) and (c) and `torch_api_smoke.py`.
+   gated), Table 2's rows (a), (b) and (c) and `torch_api_smoke.py`;
+22. the event-driven host plane (`host_plane_phase`): fb_like_trace(526,
+   150, seed=0) through `run(Scenario(engine="numpy", policy=p))` on the
+   card for each of the nine registry policies, counters set to 0 just
+   before each replay and read just after: every coflow finished and
+   byte delivered; the eight host policies take the golden's steps
+   (`tests/data/torch_port_numpy_golden.json`, the JAX package's numpy
+   engine on the CPU) with avg CCT within 1e-9 relative, `saath-torch`
+   the golden's `saath-jax` steps and avg CCT within 1%; the count of
+   CCTs differing from the golden printed; K1 = the steps for saath,
+   lwtf and saath-torch (K2 too for saath-torch), 0 for the rest, and no
+   other kernel; host<->device bytes a step, wall ms a step and the
+   kernel builds printed with the card's name and power limit; saath's
+   and lwtf's replays bit for bit the same process's `device="cpu"`
+   replays; K1 bit for bit its plain version on the five heaviest
+   captured incidences, and its time on the heaviest; Aalo's avg and
+   p90 CCT over Saath's.
 
 Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-nine main-path runs, split by path in `launches_by_path`; K6's record
+ten main-path runs, split by path in `launches_by_path`; K6's record
 also lists each timed shape under `shapes`), the script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
@@ -262,6 +282,12 @@ SERVER_TENANTS, SERVER_ROWS, SERVER_COFLOWS = 12, 8, 128
 # phase 20: K6's row lengths (one tile, the chunk boundaries, the
 # fleet's, and rows with a fourth level of totals)
 PREFIX_LENGTHS = (1, 16, 17, 4095, 4096, 4097, 8193, 30016, 65537, 200_000)
+# and the lengths of its rows with runs of -0.0 (ROADMAP C11)
+NEG_ZERO_LENGTHS = (17, 4097, 30016, 65537)
+# phase 22: the host plane's golden and its policies
+NUMPY_GOLDEN = ROOT / "tests" / "data" / "torch_port_numpy_golden.json"
+HOST_PLANE = ("saath", "aalo", "fifo", "scf", "srtf", "lwtf", "varys-sebf",
+              "uc-tcp", "saath-torch")
 # the port's kernels by the names the profiler gives them
 PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
                 "ssd_gram<", "flash_fwd", "prefix_sum_kernel")
@@ -1526,6 +1552,26 @@ def prefix_rows(B, F, seed, dev):
     return torch.from_numpy(x.astype(np.float32)).to(dev)
 
 
+def negative_zero_rows(F, seed):
+    """Seeded f32 rows (4, F) with runs of -0.0 where XLA's scan chains
+    start (tests/test_torch_cuda.py's `negative_zero_rows`): row 0 at
+    the front, row 1 across a block-of-16 boundary, row 2 across a
+    4096-tile boundary, row 3 all -0.0; 10% -0.0 scattered elsewhere."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.lognormal(0.0, 3.0, (4, F)) * rng.choice([-1.0, 1.0], (4, F))
+    x[rng.uniform(size=x.shape) < 0.1] = -0.0
+    x[0, :int(rng.integers(1, 301))] = -0.0
+    b = 16 * int(rng.integers(1, max(F // 16, 1) + 1))
+    x[1, max(b - 5, 0):b + 7] = -0.0
+    t = 4096 if F > 4096 else b
+    x[2, :3] = -0.0
+    x[2, max(t - 40, 0):t + 40] = -0.0
+    x[3] = -0.0
+    return x.astype(np.float32)
+
+
 def abs_err(got, want):
     """max |got - want| (0 for empty tensors)."""
     return float((got - want).abs().max()) if got.numel() else 0.0
@@ -1561,6 +1607,18 @@ def prefix_sum_phase(tag, grouped, leaf_grouped, tick_err):
         err = max(err, abs_err(got, want))
     print(f"[{tag}] K6 == prefix_sum_ref bit for bit at (4, F) for F in "
           f"{PREFIX_LENGTHS} (zeros and magnitudes 1 to 1e9)")
+    for F in NEG_ZERO_LENGTHS:
+        x = torch.from_numpy(negative_zero_rows(F, F)).to(dev)
+        got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"[{tag}] K6 differs from its plain version on the -0.0 "
+                 f"runs at (4, {F})")
+        if bool((got.view(torch.int32) == -2 ** 31).any()):
+            fail(f"[{tag}] K6 wrote a -0.0 (XLA's chains start from +0.0)")
+    print(f"[{tag}] K6 == prefix_sum_ref bit for bit on rows with -0.0 runs "
+          f"at the front and across block and tile boundaries, F in "
+          f"{NEG_ZERO_LENGTHS}; no -0.0 written (ROADMAP C11)")
     B = FLEET
     shapes = []
     for what, x in (("a single sum's rows of phase 4", grouped[:B]),
@@ -1600,10 +1658,11 @@ def drivers_phase(tag):
     """Phase 21: the port's drivers on the card at their defaults:
     `benchmarks/torch_pool_throughput.py` (16 sessions x 10 coflows;
     its bitwise-CCT and single-upload gates hold, the speedup is printed
-    beside the reference's 4.0 and not gated), Table 2's rows (b) and
-    (c) (`torch_table2_coordinator_latency.py`, its sub-second gate at
-    4096 coflows) and `torch_api_smoke.py` (the JAX package's CCTs at
-    rtol 1e-5, the session bit for bit its offline replay)."""
+    beside the reference's 4.0 and not gated), Table 2's rows (a), (b)
+    and (c) (`torch_table2_coordinator_latency.py`, its sub-second gate
+    at 4096 coflows) and `torch_api_smoke.py` (the JAX package's CCTs at
+    rtol 1e-5, the numpy engine within 1%, the session bit for bit its
+    offline replay)."""
     import os
 
     sys.path.insert(0, str(ROOT))
@@ -1639,7 +1698,148 @@ def drivers_phase(tag):
               f"{r['avg_ms']:.4f} ms (p90 {r['p90_ms']:.4f}); {r['note']}")
     print(f"[{tag}] torch_api_smoke: avg CCT {smoke['avg_cct']:.6f} s, max "
           f"relative deviation from the JAX package {smoke['max_rel_dev']:.3e}"
-          f"; the 3-step session equals the offline replay bit for bit")
+          f", torch / numpy engine avg CCT {smoke['engine_ratio']:.6f}; the "
+          f"3-step session equals the offline replay bit for bit")
+
+
+@contextlib.contextmanager
+def capture_contention(keep=5):
+    """Spy on `ops.contention` as the host plane's policies call it
+    (`core.contention`, the active rows only): keep clones of the `keep`
+    calls with the most rows (the heaviest ticks), in `grabbed`."""
+    from repro_torch.kernels import ops
+
+    real = ops.contention
+    grabbed = []
+
+    def spy(a_s, a_r, active, **kw):
+        out = real(a_s, a_r, active, **kw)
+        if len(grabbed) < keep or a_s.shape[1] > grabbed[-1][0].shape[1]:
+            grabbed.append((a_s.clone(), a_r.clone(), active.clone()))
+            grabbed.sort(key=lambda g: -g[0].shape[1])
+            del grabbed[keep:]
+        return out
+
+    ops.contention = spy
+    try:
+        yield grabbed
+    finally:
+        ops.contention = real
+
+
+def host_plane_phase(tag):
+    """Phase 22: the event-driven host plane (see the module docstring).
+    Returns the launch counts of its replays on the card (the
+    `host_plane` path) and K1's largest deviation from its plain version
+    on the captured incidences."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Scenario, run
+    from repro_torch.core import transfer
+    from repro_torch.kernels import ops
+    from repro_torch.traces.synth import fb_like_trace
+
+    gold = json.loads(NUMPY_GOLDEN.read_text())["rows"]
+    tr = fb_like_trace(COFLOWS, PORTS, seed=0)
+    total = None
+    res = {}
+    grabbed = []
+    for name in HOST_PLANE:
+        want = gold["saath-jax" if name == "saath-torch" else name]
+        torch.cuda.synchronize()
+        io0 = transfer.counts()
+        # the heaviest incidences of the host policies' own K1 calls
+        # (saath-torch's come whole from its tick, phase 6's shape)
+        with (capture_contention() if name in ("saath", "lwtf")
+              else contextlib.nullcontext([])) as caught:
+            ops.reset_launches()
+            try:
+                r = run(Scenario(engine="numpy", policy=name, trace=tr))
+            finally:
+                counts = ops.launch_counts()
+        io = {k: v - io0[k] for k, v in transfer.counts().items()}
+        grabbed = sorted(grabbed + caught, key=lambda g: -g[0].shape[1])[:5]
+        total = counts if total is None else \
+            {k: total[k] + v for k, v in counts.items()}
+        res[name] = r
+        cct = r.row_cct()
+        if cct.shape != (len(tr.coflows),) or not (cct > 0).all():
+            fail(f"[{tag}] {name}: unfinished or non-positive CCTs")
+        t = r.table()
+        if abs(t.sent.sum() - t.size.sum()) > 1e-5 * t.size.sum():
+            fail(f"[{tag}] {name}: bytes delivered differ from the trace's")
+        avg = float(r.avg_cct[0])
+        rel = abs(avg - want["avg_cct"]) / want["avg_cct"]
+        ndiff = int((cct != np.asarray(want["cct"])).sum())
+        k1 = counts["contention"]
+        k2 = counts["tick_walk"]
+        steps = r.steps
+        moved = io["h2d_bytes"] + io["d2h_bytes"]
+        print(f"[{tag}] {name} on fb_like_trace({COFLOWS}, {PORTS}, seed=0): "
+              f"steps {steps} (golden {want['steps']}), avg CCT {avg!r} "
+              f"(golden {want['avg_cct']!r}, relative deviation "
+              f"{rel:.3e}), p90 {r.summary()['p90_cct']!r}; CCTs differing "
+              f"from the golden: {ndiff} of {cct.size}; K1 launches {k1}, "
+              f"K2 {k2}; host<->device {moved / max(steps, 1):.0f} B a step "
+              f"({io['h2d_copies']} uploads, {io['d2h_copies']} downloads); "
+              f"wall {r.wall_seconds:.3f} s, {1e3 * r.wall_seconds / steps:.3f}"
+              f" ms a step ({1e3 * r.sched_seconds / steps:.3f} ms in the "
+              f"policy); kernel builds {r.build_seconds:.2f} s; {smi()}")
+        if steps != want["steps"]:
+            fail(f"[{tag}] {name} took {steps} steps, the golden "
+                 f"{want['steps']}")
+        if rel > (1e-2 if name == "saath-torch" else 1e-9):
+            fail(f"[{tag}] {name}'s avg CCT deviates {rel:.3e} from the "
+                 f"golden")
+        uses_k1 = name in ("saath", "lwtf", "saath-torch")
+        if k1 != (steps if uses_k1 else 0) or \
+                k2 != (steps if name == "saath-torch" else 0):
+            fail(f"[{tag}] {name}: K1 launched {k1}, K2 {k2} times for "
+                 f"{steps} steps")
+        if counts["maxmin"] or counts["ssd_scan"] or \
+                counts["flash_attention"] or counts["prefix_sum"]:
+            fail(f"[{tag}] {name}: a kernel off the host plane's path ran")
+    st, sj = res["saath"], res["saath-torch"]
+    print(f"[{tag}] saath-torch against numpy Saath on the same trace: avg "
+          f"CCT relative distance "
+          f"{abs(st.avg_cct[0] - sj.avg_cct[0]) / st.avg_cct[0]:.3e} (the "
+          f"reference's saath-jax sits "
+          f"{abs(gold['saath-jax']['avg_cct'] - gold['saath']['avg_cct']) / gold['saath']['avg_cct']:.3e}"
+          f" from its numpy Saath)")
+    for name in ("saath", "lwtf"):
+        cpu = run(Scenario(engine="numpy", policy=name, device="cpu",
+                           trace=tr))
+        if cpu.steps != res[name].steps or not (
+                np.array_equal(cpu.cct, res[name].cct)
+                and np.array_equal(cpu.fct, res[name].fct)):
+            fail(f"[{tag}] {name} on the card differs from its CPU run")
+        print(f"[{tag}] {name}: the card's replay equals the same process's "
+              f"device='cpu' replay bit for bit (steps, CCTs, FCTs; CPU "
+              f"wall {cpu.wall_seconds:.3f} s)")
+    err = 0
+    for a_s, a_r, act in grabbed:
+        got = ops.contention(a_s, a_r, act)
+        ref = ops.contention(a_s, a_r, act, force="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"[{tag}] K1 differs from its plain version on a captured "
+                 f"host-plane incidence {tuple(a_s.shape)}")
+        err = max(err, float((got - ref).abs().max()))
+    a_s, a_r, act = grabbed[0]
+    ms = cuda_ms(lambda: ops.contention(a_s, a_r, act), 50)
+    plain = cuda_ms(lambda: ops.contention(a_s, a_r, act, force="ref"), 10)
+    bnd, by = contention_bound_ms(a_s, a_r, act)
+    host = host_us(lambda: ops.contention(a_s, a_r, act))
+    print(f"[{tag}] K1 == contention_ref on the {len(grabbed)} heaviest "
+          f"captured host-plane incidences {[tuple(g[0].shape) for g in grabbed]}"
+          f"; at the heaviest: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}); host {host:.2f} us a call")
+    sa, aa = res["saath"].summary(), res["aalo"].summary()
+    print(f"[{tag}] Aalo / Saath on fb_like_trace({COFLOWS}, {PORTS}, "
+          f"seed=0): avg CCT {aa['avg_cct'] / sa['avg_cct']:.4f}x, p90 CCT "
+          f"{aa['p90_cct'] / sa['p90_cct']:.4f}x")
+    return total, err
 
 
 def server_main_path(tag, params):
@@ -2202,11 +2402,15 @@ def main():
     # ---- 21. the port's drivers -----------------------------------------
     drivers_phase("21")
 
+    # ---- 22. the event-driven host plane, nine policies ----------------
+    hcounts, herr = host_plane_phase("22")
+    err["contention"] = max(err["contention"], herr)
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
              "learned_bigswitch": ecounts, "learned_leafspine": elcounts,
-             "server": svcounts}
+             "server": svcounts, "host_plane": hcounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [

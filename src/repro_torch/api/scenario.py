@@ -1,12 +1,19 @@
 """The scheduling front door of the port: `Scenario` -> `run` -> `Result`.
 
-The port of `repro.api.scenario` for the batched fleet replay, on one
-engine, ``engine="torch"``: `run` replays the scenario's traces (or one
-trace under a sweep of settings) through `fabric.engine` on the card
-(``device`` defaults to CUDA; ``device="cpu"`` runs the plain PyTorch
-path) and normalizes the outcome into a `Result`. The event-driven numpy
-reference (``engine="numpy"``) stays in the JAX package:
-``repro.api.run(Scenario(engine="numpy", ...))``.
+The port of `repro.api.scenario`, with two engines:
+
+* ``engine="torch"`` (the default): the batched fleet replay — `run`
+  replays the scenario's traces (or one trace under a sweep of
+  settings) through `fabric.engine` on the card;
+* ``engine="numpy"``: the event-driven host simulator
+  (`fabric.simulator.Simulator`) under any registry policy
+  (`core.policies`: Saath, the Aalo, FIFO, SCF, SRTF, LWTF, Varys-SEBF
+  and UC-TCP baselines, and `saath-torch`), one trace (or one sweep
+  setting) at a time, its bookkeeping in host f64 and its kernel work
+  (the contention count, `saath-torch`'s tick) on the card.
+
+``device`` picks where the kernels run on either engine: None = CUDA
+(raises without a card), "cpu" = the plain PyTorch versions.
 
 `Result` is the single place padding/NaN semantics live:
 
@@ -26,13 +33,13 @@ import numpy as np
 
 from repro_torch.core.coflow import Trace
 from repro_torch.core.params import SchedulerParams
+from repro_torch.core.policies import resolve_policy
 
-# the mechanism-switch names the engine resolves (shared with the JAX
-# package's `repro.api.MECHANISM_KEYS`)
+# the mechanism-switch names both engines resolve (shared with the JAX
+# package's `repro.api.MECHANISM_KEYS`): tensor switches on the torch
+# plane, policy ctor kwargs (or SchedulerParams fields) on the numpy one
 MECHANISM_KEYS = ("work_conservation", "dynamics_requeue", "lcof",
                   "per_flow_threshold", "clairvoyant")
-# policies with a batched implementation (the Saath coordinator tick)
-TORCH_ENGINE_POLICIES = ("saath",)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -43,13 +50,17 @@ class Scenario:
     (a fleet, replayed batched), `synth` (kwargs for
     `traces.synth.fb_like_trace`) or `trace_path` (a file in the public
     coflow-benchmark format, `traces.loader`). `sweep` replaces `params`
-    with a grid of settings over ONE trace. `mechanisms` holds the Fig.
-    10 ablation switches by their shared names. `device` is where the
-    replay runs: None = CUDA (raises without a card), "cpu" = the plain
-    path. `warm_timing` replays twice more and reports the best warm
-    wall, with the first run's excess in `Result.compile_seconds` (on
-    the card: first-use kernel builds, which `Result.build_seconds`
-    reports apart, and the caching allocator's first growth).
+    with a grid of settings over ONE trace (batched on the torch engine,
+    looped on numpy). `mechanisms` holds the Fig. 10 ablation switches
+    by their shared names; `policy_kwargs` passes extra host-policy
+    ctor args (numpy engine only), and `max_jump` bounds the numpy
+    simulator's event horizon. `device` is where the kernels run: None
+    = CUDA (raises without a card), "cpu" = the plain path.
+    `warm_timing` (torch engine) replays twice more and reports the
+    best warm wall, with the first run's excess in
+    `Result.compile_seconds` (on the card: first-use kernel builds,
+    which `Result.build_seconds` reports apart on both engines, and the
+    caching allocator's first growth).
     """
     policy: str = "saath"
     engine: str = "torch"
@@ -62,8 +73,10 @@ class Scenario:
     synth: Optional[Mapping] = None
     trace_path: Optional[str] = None
     # engine knobs
-    fidelity: str = "flow"             # "flow" | "coflow"
+    fidelity: str = "flow"             # torch: "flow" | "coflow"
     mechanisms: Optional[Mapping] = None
+    policy_kwargs: Optional[Mapping] = None
+    max_jump: Optional[float] = None   # numpy: Simulator re-eval cadence
     topology: Optional[object] = None  # None | BigSwitch() | LeafSpine()
     device: Optional[str] = None
     warm_timing: bool = False          # extra runs split first-run cost
@@ -83,6 +96,9 @@ class Scenario:
         if self.sweep is not None:
             upd(tuple(dataclasses.astuple(p) for p in self.sweep))
         upd(tuple(sorted((self.mechanisms or {}).items())))
+        if self.policy_kwargs or self.max_jump is not None:
+            upd(tuple(sorted((self.policy_kwargs or {}).items())),
+                self.max_jump)
         if self.synth is not None:
             upd("synth", tuple(sorted(self.synth.items())))
         elif self.trace_path is not None:
@@ -129,16 +145,20 @@ class Result:
     sent: np.ndarray          # (B, F) bytes
     num_coflows: np.ndarray   # (B,) real (un-padded) coflows per row
     num_flows: np.ndarray     # (B,) real flows per row
-    steps: int                # event steps x lanes: coordinator calls
+    steps: int                # TOTAL coordinator calls across the batch
+    #                           (torch: event steps x lanes; numpy: the
+    #                           summed Simulator steps)
     wall_seconds: float
     compile_seconds: float = 0.0   # warm_timing: cold - best warm wall
     build_seconds: float = 0.0     # kernel builds (nvcc) during the run
     events: int = 0                # event steps (batched ticks) executed
     ticks: int = 0                 # max δ-grid ticks across the batch
+    sched_seconds: float = 0.0     # numpy: host time inside the policy
     scenario: Optional[Scenario] = None
     traces: Optional[list] = dataclasses.field(default=None, repr=False)
     params_rows: Optional[list] = dataclasses.field(default=None,
                                                     repr=False)
+    _tables: Optional[list] = dataclasses.field(default=None, repr=False)
 
     @property
     def batch(self) -> int:
@@ -169,7 +189,10 @@ class Result:
         return self.fct[b, :int(self.num_flows[b])]
 
     def table(self, b: int = 0):
-        """Materialize row `b` as a filled `FlowTable`."""
+        """Materialize row `b` as a filled `FlowTable` (the numpy
+        engine's own replayed table)."""
+        if self._tables is not None:
+            return self._tables[b]
         if self.traces is None:
             raise ValueError("Result carries no traces to rebuild from")
         from repro_torch.fabric.state import FlowTable
@@ -245,36 +268,99 @@ def check_mechanisms(mechanisms: "Mapping | None") -> dict:
 
 
 def run(scenario: Scenario) -> Result:
-    """Execute a Scenario and normalize the outcome."""
+    """Execute a Scenario on its engine and normalize the outcome."""
     from repro_torch.fabric import engine as eng
-    from repro_torch.kernels import build as kbuild
+    from repro_torch.fabric.topology import normalize_topology
 
     sc = scenario
-    if sc.engine == "numpy":
+    if sc.engine not in ("numpy", "torch"):
         raise ValueError(
-            "the numpy reference replay lives in the JAX package: "
-            "repro.api.run(Scenario(engine='numpy', ...)); this port's "
-            "engine is 'torch'")
-    if sc.engine != "torch":
-        raise ValueError(f"unknown engine {sc.engine!r}; available: torch")
+            f"unknown engine {sc.engine!r}; available: numpy, torch")
     if sc.fidelity not in ("flow", "coflow"):
         raise ValueError(f"unknown fidelity {sc.fidelity!r}; "
                          f"available: flow, coflow")
-    if sc.policy not in TORCH_ENGINE_POLICIES:
+    if sc.engine == "numpy" and sc.fidelity != "flow":
         raise ValueError(
-            f"policy {sc.policy!r} has no batched implementation; "
-            f"engine='torch' supports: {', '.join(TORCH_ENGINE_POLICIES)} "
-            f"(the host policies are the JAX package's numpy engine)")
+            "the numpy reference replay is inherently flow-fidelity; "
+            'fidelity="coflow" is the torch engine\'s throughput mode')
+    resolve_policy(sc.policy, sc.engine)   # raises with available list
+    normalize_topology(sc.topology)        # raises on a non-fabric object
     mech = check_mechanisms(sc.mechanisms)
     if sc.clairvoyance is not None:
         mech.setdefault("clairvoyant", sc.clairvoyance)
     device = eng.resolve_device(sc.device)
     traces = resolve_traces(sc)
     settings = list(sc.sweep) if sc.sweep is not None else None
+    if settings is not None and len(traces) != 1:
+        raise ValueError("sweep scenarios take exactly one trace")
+    if sc.engine == "numpy":
+        return _run_numpy(sc, traces, settings, mech, device)
+    return _run_torch(sc, traces, settings, mech, device)
 
+
+def _run_numpy(sc: Scenario, traces: List[Trace], settings, mech: dict,
+               device) -> Result:
+    from repro_torch.core.policies import make_policy
+    from repro_torch.fabric.simulator import Simulator
+    from repro_torch.fabric.state import FlowTable
+    from repro_torch.kernels import build as kbuild
+
+    def one(trace, params):
+        params = params.with_mechanisms(mech)
+        pol_kw = dict(sc.policy_kwargs or {})
+        for k in ("lcof", "per_flow_threshold"):
+            if k in mech:
+                pol_kw[k] = mech[k]
+        table = FlowTable.from_trace(trace, params.port_bw)
+        policy = make_policy(sc.policy, params, device=device, **pol_kw)
+        res = Simulator(params, max_jump=sc.max_jump,
+                        topology=sc.topology).run(table, policy)
+        return res, params
+
+    built = kbuild.build_seconds
+    t0 = time.perf_counter()
     if settings is not None:
-        if len(traces) != 1:
-            raise ValueError("sweep scenarios take exactly one trace")
+        rows = [one(traces[0], p) for p in settings]
+        row_traces = [traces[0]] * len(settings)
+    else:
+        rows = [one(t, sc.params) for t in traces]
+        row_traces = traces
+    wall = time.perf_counter() - t0
+
+    results = [r for r, _ in rows]
+    B = len(results)
+    Cm = max(r.table.num_coflows for r in results)
+    Fm = max(r.table.size.shape[0] for r in results)
+    cct = np.full((B, Cm), np.nan)
+    fct = np.full((B, Fm), np.nan)
+    sent = np.zeros((B, Fm))
+    for b, r in enumerate(results):
+        C, F = r.table.num_coflows, r.table.size.shape[0]
+        cct[b, :C] = r.table.cct
+        fct[b, :F] = r.table.fct
+        sent[b, :F] = r.table.sent
+    return Result(
+        engine="numpy", policy=sc.policy, cct=cct, fct=fct, sent=sent,
+        num_coflows=np.array([r.table.num_coflows for r in results]),
+        num_flows=np.array([r.table.size.shape[0] for r in results]),
+        steps=sum(r.steps for r in results), wall_seconds=wall,
+        build_seconds=kbuild.build_seconds - built,
+        sched_seconds=sum(r.sched_seconds for r in results),
+        scenario=sc, traces=row_traces,
+        params_rows=[p for _, p in rows],
+        _tables=[r.table for r in results])
+
+
+def _run_torch(sc: Scenario, traces: List[Trace], settings, mech: dict,
+               device) -> Result:
+    from repro_torch.fabric import engine as eng
+    from repro_torch.kernels import build as kbuild
+
+    if sc.policy_kwargs:
+        raise ValueError(
+            "policy_kwargs are numpy-engine only; use mechanisms= for "
+            "the shared ablation switches")
+    if settings is not None:
         if mech:
             raise ValueError(
                 "sweep scenarios encode work_conservation / "

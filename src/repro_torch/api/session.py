@@ -13,24 +13,30 @@ runs the same Fig. 7 coordinator as an open-loop service:
 * ``plan_tick()`` runs one coordinator tick in wave-planning mode
   (admitted coflows complete instantly).
 
-A session is a view onto one row of a `repro_torch.api.SessionPool`
-slab (a standalone session owns a private one-row pool;
-`SessionPool.session()` hands out rows of a shared multi-tenant slab).
-The session keeps the host truth (live `_Entry`s, clock, global δ-grid
-tick, row epoch, the pending event-horizon mirror) in f64, cast for cast
-as the reference does; the pool owns the device-resident `TraceBatch`
-and `EngineState` and every step of the engine.
+Two backends share the session contract:
+
+* ``backend="torch"`` (the default) — the serving path: the session is
+  a view onto one row of a `repro_torch.api.SessionPool` slab (a
+  standalone session owns a private one-row pool;
+  `SessionPool.session()` hands out rows of a shared multi-tenant
+  slab). The session keeps the host truth (live `_Entry`s, clock,
+  global δ-grid tick, row epoch, the pending event-horizon mirror) in
+  f64, cast for cast as the reference does; the pool owns the
+  device-resident `TraceBatch` and `EngineState` and every step of the
+  engine;
+* ``backend="numpy"`` — the event-driven host reference (the parity
+  oracle): the numpy `Saath` policy over a host `FlowTable`, its
+  contention count on `device` (K1 on the card), sharing
+  `fabric.simulator.integrate_interval` with the offline `Simulator`
+  so the two loops cannot drift.
 
 Incremental replay is exact: the δ grid is pinned at the session epoch,
 ticks at or past the advance horizon are pure no-ops, the schedule at a
 tick is evaluated only once every arrival up to it has been submitted,
 and a schedule interval that a horizon cap cut is resumed (stored rates,
 anchored integration), not re-evaluated. Feeding a trace's coflows in at
-their arrival times gives the offline replay's CCTs bit for bit.
-
-``backend="torch"`` is the one backend. The reference's event-driven
-numpy oracle (``backend="numpy"``) needs the host simulator and its
-policies, which are ROADMAP queue A item 3b.
+their arrival times gives the offline replay's CCTs bit for bit, on
+either backend.
 """
 from __future__ import annotations
 
@@ -83,8 +89,9 @@ class SaathSession:
     `params` are the paper's scheduler knobs; `num_ports` fixes the
     fabric (uniform `params.port_bw` per port). `mechanisms` takes the
     shared ablation switch names (`repro_torch.api.MECHANISM_KEYS`).
-    `device` is where the private pool's slab lives: None = CUDA (raises
-    without a card), "cpu" = the plain path. A session handed out by
+    `device` is where the private pool's slab lives (the numpy backend:
+    where its contention count runs): None = CUDA (raises without a
+    card), "cpu" = the plain path. A session handed out by
     `SessionPool.session()` takes its params, fabric and device from the
     pool.
     """
@@ -97,15 +104,9 @@ class SaathSession:
                  min_flow_capacity: int = 64,
                  topology=None, device=None,
                  _pool=None, _row: Optional[int] = None):
-        if backend == "numpy":
-            raise NotImplementedError(
-                "the numpy session backend needs the host simulator and "
-                "policies, which are not ported yet: ROADMAP queue A item "
-                "3b; the JAX package has it: repro.api.SaathSession("
-                "backend='numpy')")
-        if backend != "torch":
+        if backend not in ("torch", "numpy"):
             raise ValueError(
-                f"unknown backend {backend!r}; available: torch")
+                f"unknown backend {backend!r}; available: torch, numpy")
         from repro_torch.api.scenario import check_mechanisms
         from repro_torch.fabric.topology import normalize_topology
 
@@ -132,7 +133,31 @@ class SaathSession:
         # in the entries
         self._pend = None
 
-        if _pool is not None:
+        if backend == "numpy":
+            from repro_torch.core.policies import make_policy
+            from repro_torch.fabric.simulator import Simulator
+
+            self._pool = None
+            self.params = (params or SchedulerParams()) \
+                .with_mechanisms(mech)
+            pol_kw = {k: mech[k] for k in ("lcof", "per_flow_threshold",
+                                           "work_conservation")
+                      if k in mech}
+            self._policy = make_policy("saath", self.params, device=device,
+                                       **pol_kw)
+            # the incremental loop calls policy.schedule directly, so
+            # the topology is installed on the policy here (Simulator
+            # only installs it inside run())
+            self._policy.topology = self.topology
+            self._sim = Simulator(self.params, topology=self.topology)
+            self._table: Optional[FlowTable] = None
+            # a schedule whose event horizon extends past the last
+            # advance target: (evaluation instant, next-event instant).
+            # Resuming continues THIS interval instead of re-evaluating,
+            # so the incremental replay is event-for-event the offline
+            # Simulator loop (exact, not just 1%-close).
+            self._pending: "tuple[float, float] | None" = None
+        elif _pool is not None:
             self._pool = _pool
             self._row = _row
             self.params = params if params is not None else _pool.params
@@ -169,14 +194,14 @@ class SaathSession:
         return self._pool._F_cap
 
     def close(self) -> None:
-        """Release this session's pool row (unfinished coflows are
-        dropped). The session is unusable afterwards."""
+        """Release this session's pool row (torch backend; unfinished
+        coflows are dropped). The session is unusable afterwards."""
         if self._pool is not None:
             self._pool.release(self)
         self._live.clear()
 
     def _check_open(self) -> None:
-        if self._pool is None:
+        if self.backend == "torch" and self._pool is None:
             raise RuntimeError("session was closed (its pool row was "
                                "released)")
 
@@ -219,7 +244,10 @@ class SaathSession:
         self._check_open()
         self._clock += float(dt)
         n_end = int(math.floor(self._clock / self.params.delta + 1e-9))
-        self._pool._advance([(self, n_end)])
+        if self.backend == "torch":
+            self._pool._advance([(self, n_end)])
+        else:
+            self._advance_numpy(n_end)
         return self._clock
 
     def poll(self) -> List[CompletedCoflow]:
@@ -273,9 +301,11 @@ class SaathSession:
     def snapshot(self) -> Dict[int, dict]:
         """Per-live-coflow scheduler view, keyed by handle: queue,
         starvation deadline, admitted (`running`), finished, bytes sent.
-        Materializes this session's device row only."""
+        On the torch backend this materializes this session's device row
+        only."""
         self._check_open()
-        self._pool._materialize([self])
+        if self._pool is not None:
+            self._pool._materialize([self])
         return {h: {"queue": e.queue, "deadline": e.deadline,
                     "running": e.running, "finished": e.finished,
                     "sent": float(np.sum(e.sent))}
@@ -303,6 +333,20 @@ class SaathSession:
         self._state_dirty = True
         # the stored schedule (and any capped interval of it) is stale
         self._pend = None
+        if self.backend == "numpy":
+            self._pending = None
+            if self._table is not None and not self._tb_dirty:
+                # mutate the live table in place (no re-pack needed)
+                for h in handles:
+                    i = self._slots.index(self._live[h])
+                    lo, hi = self._table.flow_lo[i], self._table.flow_hi[i]
+                    self._table.sent[lo:hi] = self._table.size[lo:hi]
+                    self._table.done[lo:hi] = True
+                    self._table.fct[lo:hi] = now
+                    self._table.finished[i] = True
+                    self._table.active[i] = False
+                    self._table.cct[i] = now - self._table.arrival[i]
+                self._state_dirty = False
 
     def _rebuild_table(self) -> FlowTable:
         """The live coflows (slot order = submission order) as a fresh
@@ -337,13 +381,142 @@ class SaathSession:
             bw_send=np.full(P, self.params.port_bw),
             bw_recv=np.full(P, self.params.port_bw))
 
+    # ---- numpy backend: incremental event-driven reference ---------------
+
+    def _ensure_table(self) -> None:
+        if not self._tb_dirty:
+            return
+        table = self._rebuild_table()
+        # restore carried-over dynamic + coordinator state
+        self._policy.reset(table)
+        for i, e in enumerate(self._slots):
+            lo, hi = table.flow_lo[i], table.flow_hi[i]
+            table.sent[lo:hi] = e.sent
+            table.done[lo:hi] = e.done
+            table.fct[lo:hi] = e.fct
+            table.rate[lo:hi] = e.rate
+            table.finished[i] = e.finished
+            table.cct[i] = e.cct
+            self._policy._queue[i] = e.queue
+            self._policy._deadline[i] = e.deadline
+            self._policy._running[i] = e.running
+        self._table = table
+        self._tb_dirty = False
+        self._state_dirty = False
+
+    def _sync_from_table(self) -> None:
+        t = self._table
+        for i, e in enumerate(self._slots):
+            lo, hi = t.flow_lo[i], t.flow_hi[i]
+            e.sent = t.sent[lo:hi].copy()
+            e.done = t.done[lo:hi].copy()
+            e.fct = t.fct[lo:hi].copy()
+            e.rate = t.rate[lo:hi].copy()
+            e.finished = bool(t.finished[i])
+            e.cct = float(t.cct[i])
+            e.queue = int(self._policy._queue[i])
+            e.deadline = float(self._policy._deadline[i])
+            e.running = bool(self._policy._running[i])
+
+    def _advance_numpy(self, n_end: int) -> None:
+        if n_end <= self._tick:
+            return
+        if not self._live:
+            self._tick = n_end
+            return
+        self._ensure_table()
+        from repro_torch.fabric.simulator import (_quantize_up,
+                                                  integrate_interval)
+
+        table, pol, p = self._table, self._policy, self.params
+        now = self._tick * p.delta
+        target = n_end * p.delta
+        eps = 1e-12
+        guard = 0
+        while now < target - eps:
+            guard += 1
+            if guard > self._sim.max_steps:
+                raise RuntimeError("session exceeded max_steps")
+
+            # resume a schedule interval a previous advance capped: keep
+            # integrating the STORED rates to its event horizon (or to a
+            # since-submitted arrival's tick — a discrete event the
+            # offline loop would have stopped at) before re-evaluating.
+            # This keeps the evaluation instants — and with them the
+            # §4.3 drift re-queues and max_jump cadence — exactly the
+            # offline Simulator's.
+            if self._pending is not None:
+                t_eval, t_next = self._pending
+                if t_next <= now + eps:
+                    self._pending = None
+                    continue
+                stop_ev = t_next
+                late = table.arrival[table.arrival > t_eval + eps]
+                if late.size:
+                    stop_ev = min(stop_ev, max(
+                        _quantize_up(float(late.min()), p.delta),
+                        t_eval + p.delta))
+                if stop_ev <= now + eps:
+                    self._pending = None
+                    continue
+                stop = min(stop_ev, target)
+                self._sim._activate(table, t_eval)
+                integrate_interval(table, table.rate.copy(),
+                                   table.flow_live(), now, stop)
+                now = stop
+                if stop >= stop_ev - eps:
+                    self._pending = None
+                continue
+
+            self._sim._activate(table, now)
+            if table.finished.all():
+                now = target
+                break
+            live = table.flow_live()
+            future = table.arrival[table.arrival > now + eps]
+            next_arrival = float(future.min()) if future.size \
+                else math.inf
+            if not live.any():
+                now = target if math.isinf(next_arrival) else \
+                    min(_quantize_up(next_arrival, p.delta), target)
+                continue
+            rates = pol.schedule(table, now)
+            t_ev = self._sim._next_event(table, pol, now, rates,
+                                         next_arrival)
+            if math.isinf(t_ev):
+                raise RuntimeError(
+                    f"session deadlock at t={now:.3f}: no rates, no "
+                    f"events ({int(live.sum())} live flows)")
+            t_next = max(_quantize_up(t_ev, p.delta), now + p.delta)
+            stop = min(t_next, target)
+            integrate_interval(table, rates, live, now, stop)
+            if stop < t_next - eps:
+                self._pending = (now, t_next)
+            now = stop
+        self._tick = n_end
+        self._sync_from_table()
+
+    # ---- wave planning ---------------------------------------------------
+
     def _planned_admissions(self) -> List[int]:
         live = [e for e in self._live.values() if not e.finished]
         if not live:
             return []
-        adm = self._pool._plan_tick(self)
-        return [e.handle for i, e in enumerate(self._slots)
-                if adm[i] and not e.finished]
+        if self.backend == "torch":
+            adm = self._pool._plan_tick(self)
+            return [e.handle for i, e in enumerate(self._slots)
+                    if adm[i] and not e.finished]
+        now = self._tick * self.params.delta
+        self._ensure_table()
+        self._pending = None          # planning re-evaluates every tick
+        table, pol = self._table, self._policy
+        self._sim._activate(table, now)
+        rates = pol.schedule(table, now)
+        out = [e.handle for i, e in enumerate(self._slots)
+               if not e.finished
+               and rates[table.flow_lo[i]:table.flow_hi[i]].max() > 0]
+        self._sync_from_table()
+        return out
 
 
 __all__ = ["SaathSession", "CompletedCoflow"]

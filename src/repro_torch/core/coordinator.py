@@ -181,6 +181,13 @@ def _queue_of(value: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
                               right=True)
 
 
+def _deadline(now, factor, n_q, t_min):
+    """D5's starvation deadline `now + factor * n_q * t_min`, each
+    operation rounded to f32 (the reference's CPU backend fuses the
+    last multiply and add into one FMA: ROADMAP C1, C12)."""
+    return now + factor * n_q * t_min
+
+
 def _lexsort(keys, C: int, B: int, device) -> torch.Tensor:
     """jnp.lexsort over the last axis with the LAST key primary, as a
     chain of stable sorts from arange(C) up to the primary key."""
@@ -251,8 +258,8 @@ def tick_core(state: CoordState, batch: CoflowBatch, now: torch.Tensor,
                                     * dp.bw_ref[:, None])
     deadline = torch.where(
         entered,
-        now[:, None] + dp.deadline_factor[:, None]
-        * cq.gather(1, q).clamp(min=1.0) * t_min,
+        _deadline(now[:, None], dp.deadline_factor[:, None],
+                  cq.gather(1, q).clamp(min=1.0), t_min),
         state.deadline)
     expired = act & (now[:, None] >= deadline)
 

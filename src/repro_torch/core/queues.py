@@ -1,9 +1,12 @@
 """Priority-queue threshold logic (Aalo-style exponential queues).
 
-The port's own copy of `repro.core.queues.CROSS_EPS` and `queue_of`
-(the port imports nothing of `repro`). Saath (Eq. 1) compares
-m_c * N_c against the queue's upper threshold Q_q^hi; the coordinator
-tick applies the same rule on f32 tensors (`core.coordinator._queue_of`).
+The port's own copy of `repro.core.queues` (the port imports nothing of
+`repro`). Aalo assigns a coflow to queue q when its TOTAL bytes sent
+lies in [Q_{q-1}^hi, Q_q^hi); Saath (Eq. 1) compares m_c * N_c, the
+max bytes sent by any one flow times the flow count, against Q_q^hi.
+The coordinator tick applies the same rule on f32 tensors
+(`core.coordinator._queue_of`); the host policies (`core.policies`)
+call these in f64.
 """
 from __future__ import annotations
 
@@ -30,4 +33,31 @@ def queue_of(value: np.ndarray, params: SchedulerParams) -> np.ndarray:
     return np.clip(q, 0, params.num_queues - 1).astype(np.int32)
 
 
-__all__ = ["CROSS_EPS", "queue_of"]
+def aalo_queue(total_sent: np.ndarray, params: SchedulerParams) -> np.ndarray:
+    """Aalo: queue from TOTAL bytes sent by the coflow."""
+    return queue_of(total_sent, params)
+
+
+def saath_queue(max_flow_sent: np.ndarray, width: np.ndarray,
+                params: SchedulerParams) -> np.ndarray:
+    """Saath Eq. 1: per-flow thresholds — compare m_c against Q_q^hi/N_c,
+    i.e. m_c * N_c against Q_q^hi."""
+    return queue_of(np.asarray(max_flow_sent) * np.asarray(width), params)
+
+
+def min_queue_residence(queue: np.ndarray, width: np.ndarray,
+                        params: SchedulerParams) -> np.ndarray:
+    """t in the deadline formula d*C_q*t (§4.2 D5): the minimum time a
+    coflow must spend in queue q — the per-flow span of the queue sent at
+    full port rate."""
+    th = params.thresholds()
+    lo = np.array([0.0] + th[:-1])
+    hi = np.array(th)
+    # last queue is unbounded; use one growth step beyond its lower bound
+    hi[-1] = lo[-1] * params.growth if len(th) > 1 else params.start_threshold
+    span = (hi - lo)[queue]
+    return span / (np.maximum(width, 1) * params.port_bw)
+
+
+__all__ = ["CROSS_EPS", "queue_of", "aalo_queue", "saath_queue",
+           "min_queue_residence"]

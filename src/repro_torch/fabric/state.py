@@ -1,6 +1,8 @@
 """Struct-of-arrays flow table (the port's own copy of
-`repro.fabric.state`): `traces.batch.pack` flattens traces through it and
-`api.Result.table` rebuilds a filled one from a replay."""
+`repro.fabric.state`): `traces.batch.pack` flattens traces through it,
+`api.Result.table` rebuilds a filled one from a replay, and the
+event-driven host plane (`fabric.simulator` and `core.policies`) reads
+and advances it in f64 through the live views below."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,6 +44,15 @@ class FlowTable:
     # must finish before coflow c becomes schedulable
     deps: "list | None" = None
 
+    def deps_satisfied(self) -> np.ndarray:
+        ok = np.ones(self.num_coflows, bool)
+        if self.deps is None:
+            return ok
+        for c, dd in enumerate(self.deps):
+            if dd:
+                ok[c] = all(self.finished[d] for d in dd)
+        return ok
+
     @staticmethod
     def from_trace(trace: Trace, port_bw: float) -> "FlowTable":
         C = len(trace.coflows)
@@ -78,3 +89,38 @@ class FlowTable:
         if any(deps):
             t.deps = deps
         return t
+
+    # ---- live views -----------------------------------------------------
+    def flow_live(self) -> np.ndarray:
+        """(F,) bool — flow belongs to an active coflow and is unfinished."""
+        return self.active[self.cid] & ~self.done
+
+    def coflow_sent_total(self) -> np.ndarray:
+        return np.bincount(self.cid, weights=self.sent,
+                           minlength=self.num_coflows)
+
+    def coflow_max_flow_sent(self) -> np.ndarray:
+        """m_c = max bytes sent by any flow of each coflow (Saath Eq.1)."""
+        out = np.zeros(self.num_coflows)
+        np.maximum.at(out, self.cid, self.sent)
+        return out
+
+    def incidence(self, live=None):
+        """Boolean (C,P) sender & receiver incidence over live flows."""
+        if live is None:
+            live = self.flow_live()
+        A_s = np.zeros((self.num_coflows, self.num_ports), bool)
+        A_r = np.zeros((self.num_coflows, self.num_ports), bool)
+        A_s[self.cid[live], self.src[live]] = True
+        A_r[self.cid[live], self.dst[live]] = True
+        return A_s, A_r
+
+    def flow_counts(self, live=None):
+        """Integer (C,P) live-flow counts at sender / receiver ports."""
+        if live is None:
+            live = self.flow_live()
+        cnt_s = np.zeros((self.num_coflows, self.num_ports), np.int32)
+        cnt_r = np.zeros((self.num_coflows, self.num_ports), np.int32)
+        np.add.at(cnt_s, (self.cid[live], self.src[live]), 1)
+        np.add.at(cnt_r, (self.cid[live], self.dst[live]), 1)
+        return cnt_s, cnt_r

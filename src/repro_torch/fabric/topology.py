@@ -1,12 +1,15 @@
 """Fabric models of the port: the big switch and the leaf-spine tree.
 
-The port's own copy of `repro.fabric.topology` (DESIGN.md §11), without
-the numpy simulator's `bind`/`ExtraLinks` view (that simulator is not
-ported). The batched engine consumes a topology through the
-`TraceBatch` link layout that `traces.batch.pack_row` writes: per-flow
-uplink/downlink leaf ids plus a (cid, link)-sorted permutation with
-searchsorted group bounds, so per-(coflow, link) live counts are one
-segment sum inside the tick.
+The port's own copy of `repro.fabric.topology` (DESIGN.md §11). The
+batched engine consumes a topology through the `TraceBatch` link layout
+that `traces.batch.pack_row` writes: per-flow uplink/downlink leaf ids
+plus a (cid, link)-sorted permutation with searchsorted group bounds, so
+per-(coflow, link) live counts are one segment sum inside the tick. The
+event-driven host plane (`fabric.simulator`, `core.policies`) consumes
+it through `bind_table`: an `ExtraLinks` view (per-link capacities and
+per-flow link ids, -1 for intra-leaf flows) that the allocation walks
+thread through their arithmetic; the big switch binds to None, and every
+walk then takes its pre-refactor branch bit for bit.
 
 * `BigSwitch()`: contention only at the ingress/egress ports; packs no
   link leaves (Lf = 0), so the tick runs its big-switch structure.
@@ -26,8 +29,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
+
+
+class ExtraLinks(NamedTuple):
+    """The host plane's bound view of a topology's non-port links.
+
+    `cap[k]` is the capacity of extra link k (uplinks first, then
+    downlinks: k in [0, Lf) is leaf k's uplink, k in [Lf, 2Lf) is leaf
+    k-Lf's downlink). `up[f]`/`dn[f]` are flow f's extra-link ids into
+    `cap` — both -1 when the flow stays inside one leaf and touches no
+    shared link.
+    """
+    cap: np.ndarray        # (2*Lf,) float64 link capacities, bytes/s
+    up: np.ndarray         # (F,) int32 uplink id in [0, Lf), -1 = none
+    dn: np.ndarray         # (F,) int32 downlink id in [Lf, 2Lf), -1 = none
+    num_uplinks: int       # Lf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +55,9 @@ class BigSwitch:
 
     def leaf_count(self, num_ports: int) -> int:
         return 0
+
+    def bind(self, table) -> Optional[ExtraLinks]:
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +110,18 @@ class LeafSpine:
         return (np.where(inter, up, m1).astype(np.int32),
                 np.where(inter, dn, m1).astype(np.int32))
 
+    def bind(self, table) -> ExtraLinks:
+        """Bind to a `fabric.state.FlowTable`: the ExtraLinks view the
+        host allocation walks thread through their arithmetic."""
+        Lf = self.leaf_count(table.num_ports)
+        cap_up, cap_dn = self.link_caps(table.bw_send, table.bw_recv)
+        up, dn = self.flow_links(table.src, table.dst)
+        dn = np.where(dn >= 0, dn + np.int32(Lf),
+                      np.int32(-1)).astype(np.int32)
+        return ExtraLinks(
+            cap=np.concatenate([cap_up, cap_dn]).astype(np.float64),
+            up=up, dn=dn, num_uplinks=Lf)
+
 
 def normalize_topology(topology) -> object:
     """None -> BigSwitch(); raises TypeError for anything that is not
@@ -99,6 +133,12 @@ def normalize_topology(topology) -> object:
     raise TypeError(
         f"topology must be BigSwitch, LeafSpine, or None; "
         f"got {topology!r}")
+
+
+def bind_table(topology, table) -> Optional[ExtraLinks]:
+    """The host plane's one entry: None (big-switch semantics — callers
+    take their pre-refactor branch) or the bound ExtraLinks."""
+    return normalize_topology(topology).bind(table)
 
 
 def leaf_links_for(topology, num_ports: int) -> int:
@@ -113,5 +153,5 @@ def wc_fill_of(topology) -> str:
     return getattr(normalize_topology(topology), "wc_fill", "greedy")
 
 
-__all__ = ["BigSwitch", "LeafSpine", "normalize_topology",
-           "leaf_links_for", "wc_fill_of"]
+__all__ = ["BigSwitch", "LeafSpine", "ExtraLinks", "normalize_topology",
+           "bind_table", "leaf_links_for", "wc_fill_of"]

@@ -5,7 +5,9 @@
 // (repro/fabric/jax_engine.py:180, _segment_sum) are `jnp.cumsum` plus
 // two gathers, and XLA's CPU backend lowers that cumsum to a
 // reduce-window that it rewrites as a recursive scan in blocks of 16:
-//   * each block of 16 is summed sequentially from its first element;
+//   * each block of 16 is summed sequentially from the identity +0.0
+//     (so a leading -0.0 becomes +0.0: fl(+0 + x) is x for every other
+//     x);
 //   * the block totals are scanned by the same rule, recursively, until
 //     at most 16 remain, which are summed sequentially;
 //   * an element of block b > 0 is (the scanned total of blocks 0..b-1)
@@ -166,18 +168,19 @@ __device__ __forceinline__ void write_block(float4* sm, int t,
                                      v[4 * j + 3]);
 }
 
-// The sequential sum of 16 floats from the first.
+// The sequential sum of 16 floats from the identity +0.0, as XLA
+// starts every chain.
 __device__ __forceinline__ float seq_sum(const float* v) {
-  float s = v[0];
+  float s = 0.0f;
 #pragma unroll
-  for (int i = 1; i < BLK; ++i) s = __fadd_rn(s, v[i]);
+  for (int i = 0; i < BLK; ++i) s = __fadd_rn(s, v[i]);
   return s;
 }
 
 // Each element of v: its in-block prefix, plus `before` when `add`.
 __device__ __forceinline__ void block_scan(float* v, float before,
                                            bool add) {
-  float s = v[0];
+  float s = __fadd_rn(0.0f, v[0]);   // the chain starts from +0.0
   v[0] = add ? __fadd_rn(before, s) : s;
 #pragma unroll
   for (int i = 1; i < BLK; ++i) {

@@ -81,6 +81,13 @@ def _madd(avail, inv, bigm, rows, c):
     return (avail * inv[rows, c] + bigm[rows, c]).amin(-1)
 
 
+def _spend(avail, r, cnt):
+    """Admission's `avail - r * cnt`, the product rounded to f32 first,
+    as K2 does (the reference's CPU backend fuses it into one FMA:
+    ROADMAP C10, C12)."""
+    return avail - r * cnt
+
+
 def tick_walk_ref(order: torch.Tensor, n_live: torch.Tensor,
                   cnt: torch.Tensor, avail0: torch.Tensor,
                   min_rate: torch.Tensor, wc: torch.Tensor,
@@ -119,7 +126,7 @@ def tick_walk_ref(order: torch.Tensor, n_live: torch.Tensor,
         r = _madd(avail, inv, bigm, rows, c)
         ok = on & (r >= min_rate) & (r < BIG)
         r = torch.where(ok, r, 0.0)
-        avail = avail - r[:, None] * cnt[rows, c]
+        avail = _spend(avail, r[:, None], cnt[rows, c])
         rate[rows, c] = torch.where(on, r, rate[rows, c])
         admitted[rows, c] = torch.where(on, ok, admitted[rows, c])
 
@@ -405,11 +412,13 @@ PREFIX_BLOCK = 16   # XLA's scan block on the CPU (jnp.cumsum)
 
 def _scan_blocks(x: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of each row of x (B, n) in XLA's order, as a new
-    tensor: blocks of 16 summed sequentially, the block totals scanned
-    by the same rule (recursively, until at most 16 remain), and each
-    element of a block after the first = the scanned total of the
-    blocks before it + its in-block prefix. The adds run in place on a
-    zero-padded copy, one column of every block at a time."""
+    tensor: blocks of 16 summed sequentially from the identity +0.0,
+    the block totals scanned by the same rule (recursively, until at
+    most 16 remain), and each element of a block after the first = the
+    scanned total of the blocks before it + its in-block prefix. The
+    adds run in place on a zero-padded copy, one column of every block
+    at a time. Starting each chain from +0.0 (not from its first
+    element) is what turns a leading -0.0 into +0.0, as XLA does."""
     B, n = x.shape
     k = PREFIX_BLOCK
     nb = -(-n // k)
@@ -417,6 +426,7 @@ def _scan_blocks(x: torch.Tensor) -> torch.Tensor:
     blk[:, :n] = x
     blk = blk.view(B, nb, k)
     cols = blk.unbind(-1)
+    cols[0].add_(x.new_zeros((B, 1)))   # +0.0 + x: -0.0 becomes +0.0
     for i in range(1, min(n, k)):
         cols[i].add_(cols[i - 1])
     if nb > 1:

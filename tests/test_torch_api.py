@@ -160,7 +160,10 @@ def test_kernel_library_name_hashes_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(engine="numpy"), ValueError, "repro.api.run"),
+    (dict(engine="numpy", fidelity="coflow"), ValueError,
+     "inherently flow-fidelity"),
+    (dict(policy_kwargs={"lcof": False}), ValueError,
+     "numpy-engine only"),
     (dict(engine="jax"), ValueError, "unknown engine"),
     (dict(policy="aalo"), ValueError, "no batched implementation"),
     (dict(fidelity="packet"), ValueError, "unknown fidelity"),
@@ -186,6 +189,7 @@ def test_scenario_hash_is_stable_and_discriminating():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.fabric.engine, repro_torch.kernels.ops, "
+            "repro_torch.fabric.simulator, repro_torch.core.policies, "
             "repro_torch.launch.lm_serve, repro_torch.models.lm; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; "

@@ -12,7 +12,8 @@ on the card with
 This file imports no JAX (the card tests need only torch). It also
 holds `random_tick_inputs`, the seeded coordinator-tick inputs that
 `tests/test_torch_coordinator.py` feeds to both packages, and
-`prefix_rows`, the rows `tests/test_torch_prefix_sum.py` sums in both.
+`prefix_rows` and `negative_zero_rows`, the rows
+`tests/test_torch_prefix_sum.py` sums in both.
 """
 import numpy as np
 import pytest
@@ -139,6 +140,25 @@ def prefix_rows(B, F, *, seed):
     rng = np.random.default_rng(seed)
     x = rng.uniform(1.0, 10.0, (B, F)) * 10.0 ** rng.integers(0, 9, (B, F))
     x[rng.uniform(size=(B, F)) < 0.3] = 0.0
+    return x.astype(np.float32)
+
+
+def negative_zero_rows(F, seed):
+    """Seeded f32 rows (4, F) of both signs over 12 decades with 10% -0.0
+    scattered and runs of -0.0 where XLA's scan chains start: row 0 at
+    the front (1 to 300 long), row 1 across a block-of-16 boundary, row
+    2 across a 4096-tile boundary (where the row has one), row 3 all
+    -0.0 (ROADMAP C11)."""
+    rng = np.random.default_rng(seed)
+    x = rng.lognormal(0.0, 3.0, (4, F)) * rng.choice([-1.0, 1.0], (4, F))
+    x[rng.uniform(size=x.shape) < 0.1] = -0.0
+    x[0, :int(rng.integers(1, 301))] = -0.0
+    b = 16 * int(rng.integers(1, max(F // 16, 1) + 1))
+    x[1, max(b - 5, 0):b + 7] = -0.0
+    t = 4096 if F > 4096 else b
+    x[2, :3] = -0.0
+    x[2, max(t - 40, 0):t + 40] = -0.0
+    x[3] = -0.0
     return x.astype(np.float32)
 
 
@@ -1188,6 +1208,20 @@ def test_prefix_sum_kernel_matches_plain_bitwise(cuda, B, F):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("F", [17, 4097, 30016, 65537])
+def test_prefix_sum_kernel_negative_zero_runs(cuda, F):
+    """ROADMAP C11: rows with runs of -0.0 at the front and across the
+    16-block and 4096-tile boundaries: K6 starts every chain from +0.0
+    as the plain version (and XLA) does, bit for bit, and writes no
+    -0.0."""
+    x = torch.from_numpy(negative_zero_rows(F, seed=F)).to(cuda)
+    got, want = ops.prefix_sum(x), ops.prefix_sum(x, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not bool((got.view(torch.int32) == -2 ** 31).any())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,F", [(320, 30016), (2000, 100), (1, 1 << 23)])
 def test_prefix_sum_kernel_loops_over_more_tiles_than_blocks(cuda, B, F):
     """More tiles (or rows) than the card holds co-resident blocks (at
@@ -1262,3 +1296,110 @@ def test_prefix_sum_kernel_rejects_what_it_does_not_take(cuda):
         ops.prefix_sum(torch.ones(2, 4, 8, device=cuda))
     with pytest.raises(ValueError):   # rows of at most 2^23 floats
         ops.prefix_sum(torch.ones(1, (1 << 23) + 1, device=cuda))
+
+
+# ---- the event-driven host plane: K1 (and saath-torch's tick) on the card -
+
+HOST_POLICIES = ("saath", "aalo", "fifo", "scf", "srtf", "lwtf",
+                 "varys-sebf", "uc-tcp", "saath-torch")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(3))
+def test_host_contention_on_card_equals_plain(cuda, seed):
+    """`core.contention` on the card (K1 on the active rows) against the
+    same call on the CPU (the plain version): random incidences with
+    inactive, empty and dense rows, up to the full 1024 ports."""
+    from repro_torch.core.contention import contention
+
+    rng = np.random.default_rng(seed)
+    C, P = int(rng.integers(1, 600)), int(rng.integers(1, 1025))
+    a_s = rng.uniform(size=(C, P)) < 0.02
+    a_r = rng.uniform(size=(C, P)) < 0.02
+    a_s[0] = True
+    active = rng.uniform(size=C) < 0.6
+    before = ops.launch_counts()["contention"]
+    got = contention(a_s, a_r, active, device=cuda)
+    assert ops.launch_counts()["contention"] == before + int(active.any())
+    np.testing.assert_array_equal(
+        got, contention(a_s, a_r, active, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", HOST_POLICIES)
+def test_numpy_engine_on_card_matches_cpu(cuda, policy):
+    """`run(Scenario(engine="numpy"))` under every registry policy, its
+    kernel work on the card, against the same replay on the CPU: steps
+    equal and every CCT and FCT bit for bit (K1's counts are exact
+    integers; `saath-torch`'s tick is the port's, bit for bit across
+    devices). Saath and LWTF launch K1 once a schedule, `saath-torch`
+    K1 and K2 once a schedule, the rest nothing."""
+    from repro_torch.api import Scenario, run
+    from repro_torch.traces.synth import fb_like_trace
+
+    kw = dict(engine="numpy", policy=policy,
+              trace=fb_like_trace(40, 24, seed=3))
+    ops.reset_launches()
+    gpu = run(Scenario(**kw))
+    counts = ops.launch_counts()
+    cpu = run(Scenario(device="cpu", **kw))
+    assert gpu.steps == cpu.steps
+    np.testing.assert_array_equal(gpu.cct, cpu.cct)
+    np.testing.assert_array_equal(gpu.fct, cpu.fct)
+    uses_k1 = policy in ("saath", "lwtf", "saath-torch")
+    assert counts["contention"] == (gpu.steps if uses_k1 else 0)
+    assert counts["tick_walk"] == (gpu.steps if policy == "saath-torch"
+                                   else 0)
+    assert counts["maxmin"] == counts["ssd_scan"] == 0
+
+
+@pytest.mark.gpu
+def test_saath_torch_leafspine_maxmin_on_card_matches_cpu(cuda):
+    """`saath-torch` under `LeafSpine(4, 4.0, "maxmin")`: K1, K2 and K3
+    once a schedule, the replay bit for bit the CPU's."""
+    from repro_torch.api import Scenario, run
+    from repro_torch.fabric.topology import LeafSpine
+    from repro_torch.traces.synth import fb_like_trace
+
+    kw = dict(engine="numpy", policy="saath-torch",
+              trace=fb_like_trace(40, 24, seed=4),
+              topology=LeafSpine(4, 4.0, "maxmin"))
+    ops.reset_launches()
+    gpu = run(Scenario(**kw))
+    counts = ops.launch_counts()
+    cpu = run(Scenario(device="cpu", **kw))
+    assert gpu.steps == cpu.steps
+    np.testing.assert_array_equal(gpu.cct, cpu.cct)
+    for name in ("contention", "tick_walk", "maxmin"):
+        assert counts[name] == gpu.steps, name
+
+
+@pytest.mark.gpu
+def test_numpy_session_on_card_equals_cpu_and_offline(cuda):
+    """`SaathSession(backend="numpy")` with its contention count on the
+    card, fed a trace's coflows at their arrival times: the same session
+    on the CPU bit for bit, and the offline numpy replay within the
+    reference's own bar for this oracle (rtol 1e-9: the session clock
+    `now + (arrival - now)` may land an ulp past an arrival)."""
+    from repro_torch.api import SaathSession, Scenario, run
+    from repro_torch.traces.synth import fb_like_trace
+
+    tr = fb_like_trace(30, 16, seed=5)
+
+    def online(device):
+        sess = SaathSession(num_ports=16, backend="numpy", device=device)
+        got = {}
+        for c in sorted(tr.coflows, key=lambda c: (c.arrival, c.cid)):
+            sess.advance(max(c.arrival - sess.now, 0.0))
+            got[sess.submit([c])[0]] = c.cid
+        cct = np.full(len(tr.coflows), np.nan)
+        for d in sess.drain(step=1.0, max_seconds=3600.0):
+            cct[got[d.handle]] = d.cct
+        return cct
+
+    ops.reset_launches()
+    gpu = online(None)
+    assert ops.launch_counts()["contention"] > 0
+    np.testing.assert_array_equal(gpu, online("cpu"))
+    want = run(Scenario(engine="numpy", trace=tr))
+    np.testing.assert_allclose(gpu, want.row_cct(), rtol=1e-9)

@@ -249,15 +249,22 @@ def test_pool_throughput_workload_is_the_reference_workload():
 
 
 def test_table2_driver_on_the_cpu(bench_json, capsys, monkeypatch):
+    from benchmarks import torch_common
     from benchmarks import torch_table2_coordinator_latency as drv
 
     monkeypatch.setattr(drv, "FLEET_QUICK", (12, 8, 2))
+    monkeypatch.setattr(torch_common, "QUICK",
+                        dict(num_coflows=30, num_ports=16, seed=0))
     rows = drv.main(["--device", "cpu", "--sizes", "64x16", "96x24",
                      "--reps", "2", "--fleet", "1"])
-    assert [r["C"] for r in rows] == [64, 96, 12]
+    assert [r["impl"] for r in rows] == ["numpy-replay", "torch-tick",
+                                         "torch-tick",
+                                         "torch-batched-engine"]
+    assert [r["C"] for r in rows] == [30, 64, 96, 12]
+    assert rows[0]["P"] == 16
     assert all(r["avg_ms"] > 0 for r in rows)
     err = capsys.readouterr().err
-    assert "(a) numpy-replay: not ported" in err
+    assert "(a) numpy-replay: host ms inside the policy" in err
 
 
 def test_table2_inputs_are_the_reference_draws():
@@ -288,6 +295,7 @@ def test_api_smoke_driver_on_the_cpu():
 
     out = drv.main(["--device", "cpu"])
     assert out["max_rel_dev"] <= drv.RTOL and out["device"] == "cpu"
+    assert abs(out["engine_ratio"] - 1.0) < 1e-2
 
 
 def test_serve_example_on_the_cpu():

@@ -7,7 +7,8 @@ The kernel (`csrc/prefix_sum.cu`) cannot run here, so this file keeps a
 plain emulation of its two phases, on no path of the package:
 
 * A: each (row, chunk of 4096) tile sums its blocks of 16 sequentially
-  into 256 level-1 totals (zeros past the row's end), those into 16
+  (every chain from +0.0, as XLA starts it) into 256 level-1 totals
+  (zeros past the row's end), those into 16
   level-2 totals and those into one level-3 total;
 * B: each tile scans its row's level-3 totals in XLA's order (blocks of
   16, recursively), the level-2 blocks of its chunk and the one before
@@ -47,9 +48,9 @@ def _pad16(a, nb):
 
 
 def _seq_sum(v):
-    """Sequential sum over the last axis (16) from the first element."""
-    s = v[..., 0].copy()
-    for i in range(1, BLK):
+    """Sequential sum over the last axis (16) from the identity +0.0."""
+    s = np.zeros(v.shape[:-1], np.float32)
+    for i in range(BLK):
         s = s + v[..., i]
     return s
 
@@ -58,7 +59,7 @@ def _block_scan(v, before, add):
     """Each element of v (..., 16): its in-block prefix, plus `before`
     (...) where `add` (...)."""
     out = np.empty_like(v)
-    s = v[..., 0].copy()
+    s = np.float32(0) + v[..., 0]
     out[..., 0] = np.where(add, before + s, s)
     for i in range(1, BLK):
         s = s + v[..., i]
@@ -162,12 +163,16 @@ def test_design_equals_plain_and_jnp_cumsum_bitwise(F):
 
 @pytest.mark.parametrize("F", [17, 4097, 30016, 65537])
 def test_design_equals_plain_on_signed_rows(F):
-    """Both signs and both zeros: the emulation keeps the plain
-    version's bits, signed zeros included."""
+    """Both signs and both zeros, and a run of -0.0 at the row's front:
+    the emulation keeps the plain version's bits and XLA's, signed
+    zeros included (ROADMAP C11)."""
     x = _signed_rows(3, F, seed=F)
+    x[:, :min(F, 40)] = -0.0
     got = emulate(x)
     want = prefix_sum_ref(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(want))
+    xla = np.asarray(jax.jit(jax.vmap(jnp.cumsum))(x))
+    np.testing.assert_array_equal(_bits(got[:, 1:]), _bits(xla))
 
 
 def test_design_on_a_grouped_tensor():

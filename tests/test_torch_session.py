@@ -17,7 +17,8 @@ parameters, 6 ports):
   with `from_reference`, finishes in the port's `session_advance` with
   the JAX session's CCTs bit for bit;
 * the parts not ported yet raise, naming their ROADMAP queue A item
-  (learned-size sessions run: tests/test_torch_sampling.py).
+  (learned-size sessions run: tests/test_torch_sampling.py; the numpy
+  session backend: tests/test_torch_policies.py).
 """
 import dataclasses
 
@@ -30,6 +31,7 @@ from repro.core.params import SchedulerParams as JParams
 from repro.fabric.state import FlowTable as JFlowTable
 from repro.traces import batch as jbatch
 from repro_torch.api import Scenario, SaathSession, SessionPool, run
+from repro_torch.configs import get_config
 from repro_torch.core.coflow import Coflow, Flow, Trace
 from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric import engine
@@ -230,8 +232,7 @@ def test_session_rejects_bad_input():
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda: SaathSession(PARAMS, num_ports=4, backend="numpy",
-                          device="cpu"), "item 3b"),
+    (lambda: get_config("gemma-7b"), "item 11f"),
     (lambda: SessionPool(PARAMS, num_ports=4, shards=2, device="cpu"),
      "item 8"),
 ])
