@@ -12,6 +12,12 @@ record, not kept in the repository: numbers that matter go to PERF.md.
     PYTHONPATH=src python -m benchmarks.torch_table2_coordinator_latency
     PYTHONPATH=src python -m benchmarks.torch_table2_coordinator_latency \
         --device cpu
+    PYTHONPATH=src python -m benchmarks.torch_fig9_speedup --device cpu
+
+The figure drivers (`torch_fig*.py`, run together by `torch_run.py`)
+take `cli_bench`'s options: `--full`, `--engine numpy|torch` (the
+Saath side's engine; the host baselines always replay on numpy) and
+`--device`.
 """
 from __future__ import annotations
 
@@ -128,6 +134,18 @@ def cli_parser(**kw) -> argparse.ArgumentParser:
     return ap
 
 
+def cli_bench(argv=None) -> Tuple[Bench, str]:
+    """The figure drivers' CLI: `cli_parser`'s options plus --engine,
+    the replay engine of the Saath side (scenario data, not a code
+    path: the host baselines replay on numpy whatever it says)."""
+    ap = cli_parser()
+    ap.add_argument("--engine", choices=("numpy", "torch"),
+                    default="torch",
+                    help="replay engine for the Saath side")
+    args = ap.parse_args(argv)
+    return Bench(quick=not args.full, device=args.device), args.engine
+
+
 def emit(name: str, rows):
     """CSV rows: list of dicts with consistent keys."""
     if not rows:
@@ -150,5 +168,5 @@ def pctl(x, q):
     return float(np.nanpercentile(np.asarray(x, float), q))
 
 
-__all__ = ["BENCH_JSON", "Bench", "FULL", "QUICK", "cli_parser",
-           "device_name", "emit", "pctl", "record"]
+__all__ = ["BENCH_JSON", "Bench", "FULL", "QUICK", "cli_bench",
+           "cli_parser", "device_name", "emit", "pctl", "record"]

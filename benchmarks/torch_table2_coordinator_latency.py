@@ -113,19 +113,21 @@ def coordinator_rows(device, sizes=SIZES, reps: int = 20):
     return rows
 
 
-def fleet_row(bench: Bench, fleet: int = 0):
-    """Row (c): a tiny_trace fleet through the front door, warm."""
+def fleet_row(bench: Bench, fleet: int = 0, engine: str = "torch"):
+    """Row (c): a tiny_trace fleet through the front door on `engine`,
+    warm."""
     from repro_torch.traces import tiny_trace
 
     n, ports, width = FLEET_QUICK if bench.quick else FLEET_FULL
     fleet = fleet or width
     traces = tuple(tiny_trace(n, ports, seed=s, load=0.8)
                    for s in range(fleet))
-    res = api_run(Scenario(policy="saath", params=SchedulerParams(),
-                           traces=traces, warm_timing=True,
+    res = api_run(Scenario(policy="saath", engine=engine,
+                           params=SchedulerParams(), traces=traces,
+                           warm_timing=True,
                            device=bench.device, label="table2/fleet"))
     record("table2_fleet", res)
-    return {"impl": "torch-batched-engine", "C": n, "P": ports,
+    return {"impl": f"{engine}-batched-engine", "C": n, "P": ports,
             "avg_ms": 1e3 * res.wall_seconds / max(res.steps, 1),
             "p90_ms": float("nan"),
             "note": f"fleet={fleet} steps={res.steps} "
@@ -163,17 +165,26 @@ def main(argv=None):
                     help="traces in row (c)'s fleet (default 16, 32 "
                     "with --full)")
     args = ap.parse_args(argv)
-    bench = Bench(quick=not args.full, device=args.device)
+    return run(Bench(quick=not args.full, device=args.device),
+               sizes=args.sizes, reps=args.reps, fleet=args.fleet)
+
+
+def run(bench: Bench, engine: str = "torch", *, sizes=None,
+        reps: int = 20, fleet: int = 0):
+    """Rows (a), (b) at `sizes` (default SIZES) and (c) on the bench's
+    device (row (c)'s fleet on `engine`), and the sub-second gate at the
+    largest tick; the suite runner's entry (`benchmarks/torch_run.py`)."""
+    dev = bench.device
     rows = [replay_row(bench)]
     print(f"# (a) numpy-replay: host ms inside the policy a schedule step "
-          f"on {device_name(args.device)}", file=sys.stderr)
+          f"on {device_name(dev)}", file=sys.stderr)
     built = build.build_seconds
-    rows += coordinator_rows(args.device, args.sizes, args.reps)
-    print(f"# (b) synchronised wall times on {device_name(args.device)}; "
+    rows += coordinator_rows(dev, sizes or SIZES, reps)
+    print(f"# (b) synchronised wall times on {device_name(dev)}; "
           f"kernel builds {build.build_seconds - built:.2f}s before the "
           f"timed calls", file=sys.stderr)
-    rows.append(fleet_row(bench, args.fleet))
-    emit(f"table2_coordinator[torch on {device_name(args.device)}]", rows)
+    rows.append(fleet_row(bench, fleet, engine))
+    emit(f"table2_coordinator[torch on {device_name(dev)}]", rows)
     big = max((r for r in rows if r["impl"] == "torch-tick"),
               key=lambda r: r["C"])
     assert big["avg_ms"] < 1e3, "coordinator tick should be sub-second"

@@ -14,8 +14,10 @@ and depths; then the same 16 traces streamed online into a
 pilot-learned coflow sizes, and the `repro_torch.launch.serve.
 CoflowServer` front door; then the port's drivers, and the event-driven
 host plane replaying one FB-like trace under each of the nine registry
-policies — and holds each hand-written CUDA kernel of those paths
-against its plain PyTorch version on the same inputs:
+policies, then the paper's figure drivers with their host baselines,
+and the runtime bridge's wave planner and wave-ordered all-reduce — and
+holds each hand-written CUDA kernel of those paths against its plain
+PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the six kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -189,10 +191,12 @@ against its plain PyTorch version on the same inputs:
    gates; the speedup printed beside the reference's 4.0, read and not
    gated), Table 2's rows (a), (b) and (c) and `torch_api_smoke.py`;
 22. the event-driven host plane (`host_plane_phase`): fb_like_trace(526,
-   150, seed=0) through `run(Scenario(engine="numpy", policy=p))` on the
-   card for each of the nine registry policies, counters set to 0 just
-   before each replay and read just after: every coflow finished and
-   byte delivered; the eight host policies take the golden's steps
+   150, seed=0) through `torch_common.Bench(quick=False).run(p,
+   engine="numpy")` on the card for each of the nine registry policies
+   (the replays phase 23's fig9 reads from the bench's cache for its
+   host baselines), counters set to 0 just before each replay and read
+   just after: every coflow finished and byte delivered; the eight host
+   policies take the golden's steps
    (`tests/data/torch_port_numpy_golden.json`, the JAX package's numpy
    engine on the CPU) with avg CCT within 1e-9 relative, `saath-torch`
    the golden's `saath-jax` steps and avg CCT within 1%; the count of
@@ -200,16 +204,59 @@ against its plain PyTorch version on the same inputs:
    lwtf and saath-torch (K2 too for saath-torch), 0 for the rest, and no
    other kernel; host<->device bytes a step, wall ms a step and the
    kernel builds printed with the card's name and power limit; saath's
-   and lwtf's replays bit for bit the same process's `device="cpu"`
-   replays; K1 bit for bit its plain version on the five heaviest
-   captured incidences, and its time on the heaviest; Aalo's avg and
-   p90 CCT over Saath's.
+   and lwtf's replays on the card bit for bit the same process's
+   `device="cpu"` replays; K1 bit for bit its plain version on the five
+   heaviest captured incidences, and its time on the heaviest beside the
+   plain version's, one bf16 matmul form's and the bound; Aalo's avg
+   and p90 CCT over Saath's;
+23. the paper's figure drivers (`figures_phase`), each through its own
+   `run(bench, engine="torch")` on the card, counters set to 0 just
+   before each and read just after: `benchmarks/torch_fig9_speedup.py`
+   at `torch_common.FULL` (fb_like_trace(526, 150, seed=0): Saath on
+   the torch engine against Aalo, Varys-SEBF, UC-TCP, FIFO and
+   `saath-torch` on the host plane, phase 22's replays, then the
+   32-trace fleet with its wall-clock gate at `SAATH_FLEET_MIN_SPEEDUP`,
+   default 5.0, over host-only sequential replays), then at `QUICK`
+   (fb_like_trace(240, 100, seed=0), sharing one bench cache as
+   `benchmarks/torch_run.py` does) fig2, fig3, fig10, fig11, fig13,
+   fig14, fig_oversub and fig_sampling; every gate of the reference's
+   drivers holds as written (a failed one fails the phase); each
+   driver's wall and K1, K2, K6 launches printed; K3, K4, K5 0. Each
+   driver runs under `capture_ticks` (every `FIGURE_CAPTURE_EVERY`-th
+   tick) and `capture_contention`: the three heaviest captured ticks of
+   each of its tick shapes (lanes x coflows, fill, structure switches)
+   go through `compare_ticks` (K1, K2, K6 against the plain versions on
+   those inputs), and K1 equals its plain version bit for bit on the
+   five heaviest card incidences it saw; the deviations go into the
+   kernels line. The rows are held to references: fig9's Saath row
+   bit for bit phase 4's lane 0 (the same trace and params) and within
+   phase 5's 1% of the JAX package's golden; the fleet's batched
+   fidelity replay bit for bit a `device="cpu"` replay of the same
+   scenario (steps, CCTs); the QUICK Saath row and fig_sampling's three
+   torch lanes at the JAX package's event counts and within 1% of its
+   avg CCTs (`LEARNED_GOLDEN`'s `fig_sampling`, phase 18's bar). The
+   fleet's sequential replays are also timed with Saath's K1 on the
+   card, and both walls printed;
+24. the runtime bridge (`bridge_phase`): `repro_torch.runtime.
+   coflow_bridge.plan_waves` on the bridge workload of
+   `tests/test_session.py` (`bridge_workload()` of
+   `examples/multi_tenant_fabric_torch.py`, the port's one copy) with
+   the torch backend on the card (counters set to 0 just before, read
+   just after: K1 and K2 launched), every tick captured and the three
+   heaviest held to the plain versions as in phase 6; its waves equal
+   to the numpy backend's and the reference's; the planner's ms a call
+   (median of 20); then `runtime.overlap.scheduled_psum` over an NCCL
+   world of 1 (rendezvous through an in-memory `HashStore`) on a
+   6-layer tree of card tensors, its buckets planned by `plan_waves`:
+   every value back unchanged, the all-reduces issued in wave order.
+
+Each phase prints its seconds (`[n] phase seconds`).
 
 Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-ten main-path runs, split by path in `launches_by_path`; K6's record
+twelve main-path runs, split by path in `launches_by_path`; K6's record
 also lists each timed shape under `shapes`), the script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
@@ -225,6 +272,7 @@ device time.
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -294,6 +342,21 @@ PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
 # phase 21: the reference's pool-throughput gate (benchmarks/
 # pool_throughput.py:236), read here, not gated
 POOL_GATE = 4.0
+# phase 23: the figure drivers in suite order (benchmarks/torch_run.py),
+# then the two it does not run; fig9 at the FB width, the rest quick
+FIGURES = ("fig9_speedup", "fig2_out_of_sync", "fig3_offline_policies",
+           "fig10_breakdown", "fig11_bins", "fig13_fct_deviation",
+           "fig14_sensitivity", "fig_oversub", "fig_sampling")
+# phase 23: every how many ticks a driver's replays are captured
+FIGURE_CAPTURE_EVERY = 16
+# phase 24: the example that holds the bridge workload of
+# tests/test_session.py, and the reference's wave plan of it
+# (`repro.runtime.coflow_bridge.plan_waves`, jax and numpy backends)
+BRIDGE_EXAMPLE = ROOT / "examples" / "multi_tenant_fabric_torch.py"
+BRIDGE_WAVES = [["grad/0", "moe_a2a/0", "ckpt/upload"],
+                ["grad/1", "moe_a2a/1", "kv/migrate"], ["reshard/params"],
+                ["grad/2", "moe_a2a/2"], ["grad/3"], ["grad/4"], ["grad/5"]]
+PLAN_REPS = 20
 
 
 def fail(msg):
@@ -599,9 +662,9 @@ def profile_serve(sess, prompts, n_decode=16):
 
 
 @contextlib.contextmanager
-def capture_ticks():
-    """While the block runs, clone the inputs of every CAPTURE_EVERY-th
-    call of `tick_core` (the replay's and the session loop's alike) into
+def capture_ticks(every=CAPTURE_EVERY):
+    """While the block runs, clone the inputs of every `every`-th call
+    of `tick_core` (the replay's and the session loop's alike) into
     the list it yields, for `compare_ticks`, each with the inputs of the
     segment sums (`ops.prefix_sum`, K6) the engine took since the tick
     before it (this step's views, the last step's completions)."""
@@ -612,7 +675,7 @@ def capture_ticks():
     real_tick_core, real_prefix = co.tick_core, ops.prefix_sum
 
     def spy(state, batch, now, dp, **kw):
-        if calls[0] % CAPTURE_EVERY == CAPTURE_EVERY // 2:
+        if calls[0] % every == every // 2:
             clone = (lambda t: None if t is None else
                      type(t)(*(None if x is None else x.clone()
                                for x in t)))
@@ -806,6 +869,11 @@ def compare_ticks(tag, captured, exact_rates, learned=False):
                      f"kernels and plain versions")
         for k in ("rate", "wc_rate", "wc_flow"):
             a, b = got[k], want[k]
+            if a is None or b is None:   # no per-flow fill this tick
+                if a is not b:
+                    fail(f"[{tag}] captured tick {i}: {k} is None on one "
+                         f"side only")
+                continue
             if exact_rates and not torch.equal(a, b):
                 fail(f"[{tag}] captured tick {i}: {k} differs from the "
                      f"plain versions' (max abs "
@@ -1665,7 +1733,6 @@ def drivers_phase(tag):
     offline replay)."""
     import os
 
-    sys.path.insert(0, str(ROOT))
     from benchmarks import torch_api_smoke, torch_pool_throughput
     from benchmarks import torch_table2_coordinator_latency as table2
 
@@ -1680,7 +1747,8 @@ def drivers_phase(tag):
             os.environ.pop("SAATH_POOL_MIN_SPEEDUP")
         else:
             os.environ["SAATH_POOL_MIN_SPEEDUP"] = gate
-    print(f"[{tag}] torch_pool_throughput: pooled CCTs == sequential bit "
+    print(f"[{tag}] torch_pool_throughput ({rec['sessions']} sessions): "
+          f"pooled CCTs == sequential bit "
           f"for bit, {rec['full_uploads']} full upload; sequential "
           f"{rec['wall_sequential']:.3f} s, pool {rec['wall_pool']:.3f} s "
           f"(best of two warm passes; kernel builds in the cold passes "
@@ -1706,7 +1774,8 @@ def drivers_phase(tag):
 def capture_contention(keep=5):
     """Spy on `ops.contention` as the host plane's policies call it
     (`core.contention`, the active rows only): keep clones of the `keep`
-    calls with the most rows (the heaviest ticks), in `grabbed`."""
+    calls on the card with the most rows (the heaviest ticks), in
+    `grabbed`."""
     from repro_torch.kernels import ops
 
     real = ops.contention
@@ -1714,7 +1783,8 @@ def capture_contention(keep=5):
 
     def spy(a_s, a_r, active, **kw):
         out = real(a_s, a_r, active, **kw)
-        if len(grabbed) < keep or a_s.shape[1] > grabbed[-1][0].shape[1]:
+        if a_s.is_cuda and (len(grabbed) < keep or
+                            a_s.shape[1] > grabbed[-1][0].shape[1]):
             grabbed.append((a_s.clone(), a_r.clone(), active.clone()))
             grabbed.sort(key=lambda g: -g[0].shape[1])
             del grabbed[keep:]
@@ -1727,9 +1797,11 @@ def capture_contention(keep=5):
         ops.contention = real
 
 
-def host_plane_phase(tag):
-    """Phase 22: the event-driven host plane (see the module docstring).
-    Returns the launch counts of its replays on the card (the
+def host_plane_phase(tag, bench):
+    """Phase 22: the event-driven host plane (see the module docstring),
+    its replays through `bench` (`torch_common.Bench` at FULL on the
+    card), whose cache phase 23's fig9 then reads for its host
+    baselines. Returns the launch counts of its replays on the card (the
     `host_plane` path) and K1's largest deviation from its plain version
     on the captured incidences."""
     import numpy as np
@@ -1742,6 +1814,11 @@ def host_plane_phase(tag):
 
     gold = json.loads(NUMPY_GOLDEN.read_text())["rows"]
     tr = fb_like_trace(COFLOWS, PORTS, seed=0)
+    if bench.quick or bench.device != "cuda" or \
+            bench.scenario().synth != dict(num_coflows=COFLOWS,
+                                           num_ports=PORTS, seed=0):
+        fail(f"[{tag}] the bench is not fb_like_trace({COFLOWS}, {PORTS}, "
+             f"seed=0) on the card")
     total = None
     res = {}
     grabbed = []
@@ -1755,7 +1832,7 @@ def host_plane_phase(tag):
               else contextlib.nullcontext([])) as caught:
             ops.reset_launches()
             try:
-                r = run(Scenario(engine="numpy", policy=name, trace=tr))
+                r = bench.run(name, engine="numpy")
             finally:
                 counts = ops.launch_counts()
         io = {k: v - io0[k] for k, v in transfer.counts().items()}
@@ -1808,38 +1885,325 @@ def host_plane_phase(tag):
           f"{abs(gold['saath-jax']['avg_cct'] - gold['saath']['avg_cct']) / gold['saath']['avg_cct']:.3e}"
           f" from its numpy Saath)")
     for name in ("saath", "lwtf"):
+        card = res[name]
         cpu = run(Scenario(engine="numpy", policy=name, device="cpu",
                            trace=tr))
-        if cpu.steps != res[name].steps or not (
-                np.array_equal(cpu.cct, res[name].cct)
-                and np.array_equal(cpu.fct, res[name].fct)):
+        if cpu.steps != card.steps or not (
+                np.array_equal(cpu.cct, card.cct)
+                and np.array_equal(cpu.fct, card.fct)):
             fail(f"[{tag}] {name} on the card differs from its CPU run")
-        print(f"[{tag}] {name}: the card's replay equals the same process's "
-              f"device='cpu' replay bit for bit (steps, CCTs, FCTs; CPU "
-              f"wall {cpu.wall_seconds:.3f} s)")
-    err = 0
-    for a_s, a_r, act in grabbed:
-        got = ops.contention(a_s, a_r, act)
-        ref = ops.contention(a_s, a_r, act, force="ref")
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            fail(f"[{tag}] K1 differs from its plain version on a captured "
-                 f"host-plane incidence {tuple(a_s.shape)}")
-        err = max(err, float((got - ref).abs().max()))
+        print(f"[{tag}] {name}: the card's replay equals the same "
+              f"process's device='cpu' replay bit for bit (steps "
+              f"{card.steps}, CCTs, FCTs; walls: card "
+              f"{card.wall_seconds:.3f} s, CPU {cpu.wall_seconds:.3f} s)")
+    err = hold_kernels(tag, "the host plane", [], grabbed)["contention"]
     a_s, a_r, act = grabbed[0]
     ms = cuda_ms(lambda: ops.contention(a_s, a_r, act), 50)
     plain = cuda_ms(lambda: ops.contention(a_s, a_r, act, force="ref"), 10)
+    lib = cuda_ms(lambda: contention_library(
+        a_s.bfloat16(), a_r.bfloat16(), act), 10)
     bnd, by = contention_bound_ms(a_s, a_r, act)
     host = host_us(lambda: ops.contention(a_s, a_r, act))
-    print(f"[{tag}] K1 == contention_ref on the {len(grabbed)} heaviest "
-          f"captured host-plane incidences {[tuple(g[0].shape) for g in grabbed]}"
-          f"; at the heaviest: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by}); host {host:.2f} us a call")
+    print(f"[{tag}] K1 at the heaviest host-plane incidence "
+          f"{tuple(a_s.shape)}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bf16 matmul {lib:.4f} ms, bound {bnd:.5f} ms ({by}); host "
+          f"{host:.2f} us a call")
     sa, aa = res["saath"].summary(), res["aalo"].summary()
     print(f"[{tag}] Aalo / Saath on fb_like_trace({COFLOWS}, {PORTS}, "
           f"seed=0): avg CCT {aa['avg_cct'] / sa['avg_cct']:.4f}x, p90 CCT "
           f"{aa['p90_cct'] / sa['p90_cct']:.4f}x")
     return total, err
+
+
+def tick_shape(c):
+    """What sets a captured tick's kernel inputs apart: lanes x coflows,
+    the fill, whether flows came with it, and which structure switches
+    (the batch's and the params' optional fields) it carries."""
+    _, batch, _, dp, flows, fill, _ = c
+    return (tuple(batch.active.shape), fill, flows is None,
+            tuple(x is None for x in batch), tuple(x is None for x in dp))
+
+
+def hold_kernels(tag, what, captured, caught):
+    """K1, K2, K6 (and K3 where a tick fills max-min) against their plain
+    versions on the inputs one run gave them: `compare_ticks` on the
+    three heaviest captured ticks of each tick shape, and K1 bit for
+    bit on the card incidences `capture_contention` kept. Returns the
+    largest deviations."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    groups = {}
+    for c in captured:
+        groups.setdefault(tick_shape(c), []).append(c)
+    err = {n: 0.0 for n in ("contention", "tick_walk", "maxmin_rates",
+                            "prefix_sum")}
+    for ticks in groups.values():
+        _, e = compare_ticks(tag, ticks, exact_rates=False)
+        err = {k: max(err[k], e[k]) for k in err}
+    for a_s, a_r, act in caught:
+        got = ops.contention(a_s, a_r, act)
+        ref = ops.contention(a_s, a_r, act, force="ref")
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"[{tag}] {what}: K1 differs from its plain version on a "
+                 f"captured {tuple(a_s.shape)} incidence")
+        err["contention"] = max(err["contention"],
+                                float((got - ref).abs().max()))
+    ticks = (f"kernels == plain versions on the heaviest captured ticks of "
+             f"each of its {len(groups)} tick shapes "
+             f"{sorted({k[0] for k in groups})}; " if groups else "")
+    print(f"[{tag}] {what}: {ticks}K1 == contention_ref on the "
+          f"{len(caught)} heaviest card incidences "
+          f"{[tuple(g[0].shape) for g in caught]}", flush=True)
+    return err
+
+
+def figures_phase(tag, full, known):
+    """Phase 23: the paper's figure drivers on the card (module
+    docstring); fig9 on `full`, the FULL bench phase 22 filled, the rest
+    on one QUICK bench. `known` is phase 4's result (lane 0 is fig9's
+    Saath row). Returns the launch counts of their replays (the
+    `figures` path) and the kernels' largest deviations from their plain
+    versions on the inputs captured from them."""
+    import importlib
+
+    import numpy as np
+
+    from benchmarks import torch_common
+    from repro_torch.kernels import ops
+
+    quick = torch_common.Bench(quick=True, device="cuda")
+    mods = [torch_common] + [importlib.import_module(f"benchmarks.torch_{n}")
+                             for n in FIGURES]
+    real_run = torch_common.api_run
+    replays = []   # every front-door replay the drivers make
+
+    def spy(sc):
+        res = real_run(sc)
+        replays.append((sc, res))
+        return res
+
+    patched = [m for m in mods if getattr(m, "api_run", None) is real_run]
+    total = None
+    err = {n: 0.0 for n in ("contention", "tick_walk", "maxmin_rates",
+                            "prefix_sum")}
+    for m in patched:
+        m.api_run = spy
+    try:
+        for name, mod in zip(FIGURES, mods[1:]):
+            bench = full if name == "fig9_speedup" else quick
+            with capture_ticks(FIGURE_CAPTURE_EVERY) as captured, \
+                    capture_contention() as caught:
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                try:
+                    rows = mod.run(bench, engine="torch")
+                except AssertionError as e:
+                    fail(f"[{tag}] torch_{name}: a gate failed: {e}")
+                finally:
+                    counts = ops.launch_counts()
+                wall = time.perf_counter() - t0
+            total = counts if total is None else \
+                {k: total[k] + v for k, v in counts.items()}
+            size = ("FULL", torch_common.FULL) if bench is full else \
+                ("QUICK", torch_common.QUICK)
+            print(f"[{tag}] torch_{name} at {size[0]} {size[1]}: every gate "
+                  f"holds; wall {wall:.3f} s; K1 launches "
+                  f"{counts['contention']}, K2 {counts['tick_walk']}, K6 "
+                  f"{counts['prefix_sum']} ({counts['prefix_sum_rows']} "
+                  f"rows), K3 {counts['maxmin']} (replays cached by phase "
+                  f"22 or an earlier driver are not rerun)", flush=True)
+            if counts["ssd_scan"] or counts["flash_attention"] or \
+                    counts["maxmin"]:
+                fail(f"[{tag}] torch_{name}: a kernel off the figures' path "
+                     f"ran")
+            if name == "fig9_speedup":
+                for r in rows:
+                    if "p50" in r:
+                        print(f"[{tag}] fig9 Saath against {r['vs']}: p50 "
+                              f"{r['p50']:.4f}x, p90 {r['p90']:.4f}x, "
+                              f"overall {r['overall']:.4f}x")
+                    else:
+                        print(f"[{tag}] fig9 {r['vs']}: wall "
+                              f"{r['wall_s']:.4f} s, speedup "
+                              f"{r['speedup']:.3f}x ({r['note']})")
+                print(f"[{tag}] fig9 fleet: {rows[-1]['speedup']:.3f}x "
+                      f"against the gate "
+                      f"{os.environ.get('SAATH_FLEET_MIN_SPEEDUP', '5.0')}x"
+                      f"; {smi()}")
+            e = hold_kernels(tag, f"torch_{name}", captured, caught)
+            err = {k: max(err[k], e[k]) for k in err}
+            del captured, caught
+    finally:
+        for m in patched:
+            m.api_run = real_run
+    for k in ("contention", "tick_walk", "prefix_sum"):
+        if not total[k]:
+            fail(f"[{tag}] {k} was not launched by the figure drivers")
+
+    # the rows against references
+    gold = json.loads(GOLDEN.read_text())
+    saath = full.run("saath", engine="torch")
+    if not np.array_equal(saath.row_cct(0), known.row_cct(0)):
+        fail(f"[{tag}] fig9's Saath row differs from phase 4's lane 0")
+    rel = abs(saath.avg_cct[0] - gold["avg_cct"][0]) / gold["avg_cct"][0]
+    print(f"[{tag}] fig9 Saath row (fb_like_trace({COFLOWS}, {PORTS}, "
+          f"seed=0)): CCTs bit for bit phase 4's lane 0; avg CCT "
+          f"{saath.avg_cct[0]:.6f} vs JAX {gold['avg_cct'][0]:.6f} "
+          f"(relative deviation {rel:.3e})")
+    if rel > 1e-2:
+        fail(f"[{tag}] fig9's Saath row deviates {rel:.3%} from the JAX "
+             f"package")
+    seq = fid = None
+    for sc, res in replays:
+        if sc.label == "fleet-seq":
+            seq = (sc, res)
+        elif sc.label == "fleet-fidelity":
+            fid = (sc, res)
+    sc, res = fid
+    cpu = real_run(dataclasses.replace(sc, device="cpu", warm_timing=False))
+    if cpu.steps != res.steps or not np.array_equal(cpu.cct, res.cct,
+                                                    equal_nan=True):
+        fail(f"[{tag}] the fleet's fidelity replay on the card differs from "
+             f"its device='cpu' replay")
+    print(f"[{tag}] fig9 fleet-fidelity ({len(sc.traces)} lanes): the card's "
+          f"batched replay equals the same scenario's device='cpu' replay "
+          f"bit for bit (steps {res.steps}, CCTs; CPU wall "
+          f"{cpu.wall_seconds:.3f} s)")
+    sc, host = seq
+    card = real_run(dataclasses.replace(sc, device="cuda"))
+    if not np.array_equal(card.cct, host.cct, equal_nan=True):
+        fail(f"[{tag}] the fleet's sequential replays with K1 on the card "
+             f"differ from the host-only ones")
+    print(f"[{tag}] fig9 fleet-seq: host-only (the gate's yardstick) "
+          f"{host.wall_seconds:.4f} s, with Saath's K1 on the card "
+          f"{card.wall_seconds:.4f} s ({card.wall_seconds / host.wall_seconds:.4f}"
+          f"x), CCTs equal; {smi()}")
+    lgold = json.loads(LEARNED_GOLDEN.read_text())["fig_sampling"]
+    lanes = [("known", quick.run("saath", engine="torch"))] + [
+        (sc.label[len("sampling-"):], res) for sc, res in replays
+        if sc.engine == "torch" and sc.label.startswith("sampling-")]
+    for lane, res in lanes:
+        want = lgold[lane]
+        within(tag, f"QUICK {lane} row ({res.events} events, JAX "
+               f"{want['events']})", res.avg_cct[0], want["avg_cct"])
+        if res.events != want["events"]:
+            fail(f"[{tag}] the QUICK {lane} row took {res.events} events, "
+                 f"the JAX package {want['events']}")
+    return total, err
+
+
+def bridge_workload():
+    """The bridge workload, from the port's one copy of it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(BRIDGE_EXAMPLE.stem,
+                                                  BRIDGE_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bridge_workload()
+
+
+def bridge_phase(tag):
+    """Phase 24: the runtime bridge on the card (module docstring).
+    Returns the launch counts of the planner's run (the `bridge`
+    path) and the kernels' largest deviations from their plain versions
+    on its ticks."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.buckets import bucketize, leaves_with_path
+    from repro_torch.runtime.coflow_bridge import (grad_bucket_coflows,
+                                                   plan_waves)
+    from repro_torch.runtime.overlap import scheduled_psum
+
+    cfs = bridge_workload()
+    torch.cuda.synchronize()
+    with capture_ticks(1) as captured, capture_contention() as caught:
+        ops.reset_launches()
+        try:
+            waves = plan_waves(cfs, num_chips=16, backend="torch")
+            torch.cuda.synchronize()
+        finally:
+            counts = ops.launch_counts()
+    err = hold_kernels(tag, "plan_waves", captured, caught)
+    del captured, caught
+    host = plan_waves(cfs, num_chips=16, backend="numpy")
+    if waves != host or waves != BRIDGE_WAVES:
+        fail(f"[{tag}] plan_waves on the card {waves} differs from the numpy "
+             f"backend's {host} or the reference's {BRIDGE_WAVES}")
+    for k in ("contention", "tick_walk"):
+        if not counts[k]:
+            fail(f"[{tag}] the planner launched no {k}")
+    if counts["maxmin"] or counts["ssd_scan"] or counts["flash_attention"]:
+        fail(f"[{tag}] a kernel off the planner's path ran")
+    walls = []
+    for _ in range(PLAN_REPS):
+        t0 = time.perf_counter()
+        plan_waves(cfs, num_chips=16, backend="torch")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plan_waves(cfs, num_chips=16, backend="numpy")
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[{tag}] plan_waves on the bridge workload ({len(cfs)} "
+          f"collectives, 16 chips, {len(waves)} waves): torch backend on the "
+          f"card == numpy backend == the reference's waves; K1 launches "
+          f"{counts['contention']}, K2 {counts['tick_walk']}, K6 "
+          f"{counts['prefix_sum']} a call; "
+          f"{1e3 * statistics.median(walls):.3f} ms a call (median of "
+          f"{PLAN_REPS}; min {1e3 * min(walls):.3f}), numpy backend "
+          f"{np_ms:.3f} ms; {smi()}", flush=True)
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    tree = {f"layer{i}": {"w": torch.randn(256, 256 + 64 * i, generator=g),
+                          "b": torch.randn(256, generator=g)}
+            for i in range(6)}
+    tree = {k: {n: t.to(dev) for n, t in v.items()} for k, v in tree.items()}
+    bks = bucketize(tree, bucket_bytes=1 << 19)
+    pwaves = plan_waves(grad_bucket_coflows(bks), num_chips=16,
+                        backend="torch")
+    flat = [leaf for _, leaf in leaves_with_path(tree)]
+    issued = []
+    real = dist.all_reduce
+    sizes = {sum(flat[i].numel() for i in b.leaf_idx): f"grad/{b.bid}"
+             for b in bks}
+
+    def spy(x, group=None, async_op=False):
+        issued.append(sizes[x.numel()])
+        return real(x, group=group, async_op=async_op)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        dist.all_reduce = spy
+        try:
+            out = scheduled_psum(flat, bks, pwaves)
+        finally:
+            dist.all_reduce = real
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if len(sizes) != len(bks) or \
+            issued != [n for w in pwaves for n in w]:
+        fail(f"[{tag}] scheduled_psum issued {issued}, not the waves "
+             f"{pwaves}")
+    for a, b in zip(out, flat):
+        if a.device != dev or not torch.equal(a, b):
+            fail(f"[{tag}] scheduled_psum over a world of 1 changed a value")
+    print(f"[{tag}] scheduled_psum over a {backend} world of 1 (HashStore "
+          f"rendezvous): {len(flat)} leaves in {len(bks)} buckets "
+          f"({sum(b.bytes for b in bks)} B) returned unchanged on the card, "
+          f"all-reduces issued in wave order {pwaves}")
+    return counts, err
 
 
 def server_main_path(tag, params):
@@ -2027,6 +2391,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_script = time.perf_counter()
+    t_lap = [t_script]
+
+    def lap(tag):
+        now = time.perf_counter()
+        print(f"[{tag}] phase seconds {now - t_lap[0]:.1f}", flush=True)
+        t_lap[0] = now
+
     dev = torch.device("cuda")
     card = smi()
     print(f"card: {card} | {torch.cuda.get_device_name(0)} | torch "
@@ -2040,6 +2411,8 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+
+    lap("1")
 
     # ---- 2. K1 at Table 2's shapes -------------------------------------
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -2063,6 +2436,8 @@ def main():
             print(f"[2] K1 (1, {C}, 512) {str(dtype)[6:]}: exact; kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bf16 matmul "
                   f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+    lap("2")
 
     # ---- 3. no host sync inside a chunk, on each path ------------------
     params = Scenario().params
@@ -2144,6 +2519,8 @@ def main():
           f"set_sync_debug_mode('error')")
     del state, pool
 
+    lap("3")
+
     # ---- 4. the big-switch main path -----------------------------------
     res, counts, captured = drive("4", Scenario(engine="torch",
                                                 traces=fleet), fleet)
@@ -2156,6 +2533,8 @@ def main():
     if counts["ssd_scan"] or counts["flash_attention"]:
         fail("a model kernel ran on the big-switch fleet replay")
 
+    lap("4")
+
     # ---- 5. whole-path parity with the JAX package ---------------------
     gold = json.loads(GOLDEN.read_text())
     for b, want in zip(gold["seeds"], gold["avg_cct"]):
@@ -2165,6 +2544,8 @@ def main():
         if dev_rel > 1e-2:
             fail(f"lane {b} avg CCT deviates {dev_rel:.3%} from the JAX "
                  f"package")
+
+    lap("5")
 
     # ---- 6. kernels vs plain versions on captured ticks ----------------
     grabbed, err = compare_ticks("6", captured, exact_rates=False)
@@ -2200,6 +2581,8 @@ def main():
           f"the busiest lane ({k2_lane}): {k2_steps} dependent steps "
           f"{k2_parts}, {1e6 * k2_ms / max(k2_steps, 1):.1f} ns per step")
 
+    lap("6")
+
     # ---- 7. the leaf-spine max-min main path ---------------------------
     lres, lcounts, lcaptured = drive(
         "7", Scenario(engine="torch", traces=fleet, topology=leaf), fleet)
@@ -2209,6 +2592,8 @@ def main():
                  f"leaf-spine event steps")
     if lcounts["ssd_scan"] or lcounts["flash_attention"]:
         fail("a model kernel ran on the leaf-spine fleet replay")
+
+    lap("7")
 
     # ---- 8. leaf-spine whole-path parity with the JAX package ----------
     lgold = json.loads(LEAF_GOLDEN.read_text())
@@ -2229,6 +2614,8 @@ def main():
         if dev_rel > 1e-2:
             fail(f"leaf-spine lane {b} avg CCT deviates {dev_rel:.3%} "
                  f"from the JAX package")
+
+    lap("8")
 
     # ---- 9. leaf-spine kernels vs plain versions on captured ticks -----
     lgrabbed, lerr = compare_ticks("9", lcaptured, exact_rates=True)
@@ -2263,6 +2650,8 @@ def main():
           f"barriers, {1e6 * k3_ms / max(rounds, 1):.1f} ns per round; "
           f"library: null (no single PyTorch call computes max-min fair "
           f"rates)")
+
+    lap("9")
 
     # ---- 10. K4 against its plain version ------------------------------
     k4 = {}
@@ -2319,13 +2708,19 @@ def main():
           f"{cuda_launches('10', lambda: ops.ssd_scan(*k4_one, lc=one[-1]))}")
     del k4_one
 
+    lap("10")
+
     # ---- 11. Mamba2 full-width parity with the JAX package -------------
     golden_parity("11", SERVE_ARCH, MAMBA_GOLDEN, "ssd_scan",
                   {"ssd_state_norm": "ssd"})
 
+    lap("11")
+
     # ---- 12. the serve main path: Mamba2-1.3B, 48 layers, bf16 ---------
     scounts = serve_main_path("12", SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT,
                               SERVE_TOKENS, "ssd_scan")
+
+    lap("12")
 
     # ---- 13. K5 against its plain version ------------------------------
     k5 = {}
@@ -2371,46 +2766,79 @@ def main():
           f"{r['bound'] / r['ms']:.1%} of the bound, {r['ms'] / r['sdpa']:.3f}"
           f" x SDPA's time in this run; {smi()}")
 
+    lap("13")
+
     # ---- 14. StarCoder2 full-width parity with the JAX package ---------
     golden_parity("14", ATTN_ARCH, ATTN_GOLDEN, "flash_attention",
                   {"k_cache_norm": "k", "v_cache_norm": "v"})
+
+    lap("14")
 
     # ---- 15. the serve main path: StarCoder2-3B, 30 layers, bf16 -------
     acounts = serve_main_path("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT,
                               ATTN_TOKENS, "flash_attention")
     bf16_pair("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT, "flash_attention")
 
+    lap("15")
+
     # ---- 16. the pool's main path on the big switch --------------------
     pcounts = pool_main_path("16", fleet, params, res)
 
+    lap("16")
+
     # ---- 17. the leaf-spine pool ---------------------------------------
     plcounts = leafspine_pool("17", params, leaf)
+
+    lap("17")
 
     # ---- 18. learned sizes: the fleet, its parity lanes, fig_sampling --
     ecounts, elcounts, eerr = learned_main_path("18", fleet, params, leaf,
                                                 res)
 
+    lap("18")
+
     # ---- 19. the CoflowServer front door --------------------------------
     svcounts, sverr = server_main_path("19", params)
     err = {k: max(err[k], eerr[k], sverr[k]) for k in err}
+
+    lap("19")
 
     # ---- 20. K6: the segment sums' prefix sums -------------------------
     (k6_x,), _ = grabbed["prefix_sum"]
     (k6_lx,), _ = lgrabbed["prefix_sum"]
     k6 = prefix_sum_phase("20", k6_x, k6_lx, err["prefix_sum"])
 
+    lap("20")
+
     # ---- 21. the port's drivers -----------------------------------------
+    sys.path.insert(0, str(ROOT))   # the `benchmarks` package
     drivers_phase("21")
 
+    lap("21")
+
     # ---- 22. the event-driven host plane, nine policies ----------------
-    hcounts, herr = host_plane_phase("22")
+    from benchmarks import torch_common
+    full = torch_common.Bench(quick=False, device="cuda")
+    hcounts, herr = host_plane_phase("22", full)
     err["contention"] = max(err["contention"], herr)
+    lap("22")
+
+    # ---- 23. the paper's figure drivers ---------------------------------
+    fcounts, ferr = figures_phase("23", full, res)
+    del full
+    lap("23")
+
+    # ---- 24. the runtime bridge -----------------------------------------
+    bcounts, berr = bridge_phase("24")
+    err = {k: max(err[k], ferr[k], berr[k]) for k in err}
+    lap("24")
 
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
              "learned_bigswitch": ecounts, "learned_leafspine": elcounts,
-             "server": svcounts, "host_plane": hcounts}
+             "server": svcounts, "host_plane": hcounts,
+             "figures": fcounts, "bridge": bcounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [

@@ -2,8 +2,9 @@
 K4 SSD scan, K5 attention, K6 prefix sums) against their plain PyTorch versions, on the
 card (learned-size ticks among them), the replays, pools and a small
 `CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
-serve with K4 against the plain path, and a 2-layer full-width
-StarCoder2 serve through K5 against the JAX package's golden. Every
+serve with K4 against the plain path, a 2-layer full-width
+StarCoder2 serve through K5 against the JAX package's golden, and the
+runtime bridge (its wave plan, an NCCL world of 1). Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
 
@@ -1403,3 +1404,62 @@ def test_numpy_session_on_card_equals_cpu_and_offline(cuda):
     np.testing.assert_array_equal(gpu, online("cpu"))
     want = run(Scenario(engine="numpy", trace=tr))
     np.testing.assert_allclose(gpu, want.row_cct(), rtol=1e-9)
+
+
+def _bridge_workload():
+    """The bridge workload of `tests/test_session.py`, from the port's
+    one copy of it in `examples/multi_tenant_fabric_torch.py`."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "multi_tenant_fabric_torch.py"
+    spec = importlib.util.spec_from_file_location("multi_tenant_fabric_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bridge_workload()
+
+
+@pytest.mark.gpu
+def test_plan_waves_on_card_equals_cpu_and_numpy(cuda):
+    """The bridge's wave plan with the torch session on the card (K1, K2
+    and K6 launched) equals the same planner on the CPU and the numpy
+    backend on the card."""
+    from repro_torch.runtime.coflow_bridge import plan_waves
+
+    cfs = _bridge_workload()
+    ops.reset_launches()
+    got = plan_waves(cfs)
+    counts = ops.launch_counts()
+    assert counts["contention"] == counts["tick_walk"] == len(got)
+    assert counts["prefix_sum"] > 0
+    assert got == plan_waves(cfs, device="cpu") == \
+        plan_waves(cfs, backend="numpy")
+    assert [n for w in got for n in w if n.startswith("grad/")] == [
+        f"grad/{b}" for b in range(6)]
+
+
+@pytest.mark.gpu
+def test_scheduled_psum_over_an_nccl_world_of_one(cuda):
+    """A per-bucket NCCL all-reduce over a world of 1 (rendezvous in an
+    in-memory store) returns the card tensors' values."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.buckets import bucketize, leaves_with_path
+    from repro_torch.runtime.overlap import scheduled_psum
+
+    tree = {"a": torch.arange(16.0, device=cuda).reshape(4, 4),
+            "b": torch.ones(8, device=cuda)}
+    bks = bucketize(tree, bucket_bytes=40)
+    flat = [leaf for _, leaf in leaves_with_path(tree)]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        out = scheduled_psum(flat, bks, [[f"grad/{b.bid}"] for b in bks])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(out, flat):
+        assert a.device.type == "cuda" and torch.equal(a, b)
