@@ -15,8 +15,9 @@ pilot-learned coflow sizes, and the `repro_torch.launch.serve.
 CoflowServer` front door; then the port's drivers, and the event-driven
 host plane replaying one FB-like trace under each of the nine registry
 policies, then the paper's figure drivers with their host baselines,
-and the runtime bridge's wave planner and wave-ordered all-reduce — and
-holds each hand-written CUDA kernel of those paths against its plain
+and the runtime bridge's wave planner and wave-ordered all-reduce, and
+last the analysis plane's checks of the device step — and holds each
+hand-written CUDA kernel of those paths against its plain
 PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the six kernels with nvcc
@@ -248,7 +249,38 @@ PyTorch version on the same inputs:
    (median of 20); then `runtime.overlap.scheduled_psum` over an NCCL
    world of 1 (rendezvous through an in-memory `HashStore`) on a
    6-layer tree of card tensors, its buckets planned by `plan_waves`:
-   every value back unchanged, the all-reduces issued in wave order.
+   every value back unchanged, the all-reduces issued in wave order;
+25. the analysis plane (`analysis_phase`, `repro_torch.analysis`): one
+   tick, one session step and a session advance to 64 ticks of phase
+   4's fleet on each fabric (big switch, and phase 7's leaf-spine) under
+   the op scan (`analysis.op_scan`): no f64 site, no host sync or
+   transfer in the step, the loop's counted flag-read crossings equal to
+   the flag reads it reports, every `kernel:*` entry equal to its
+   launch counter over the run, and the card's op histogram of a tick
+   printed; the audit's seven entry points on the canonical slab
+   (`analysis.audit`) with the same checks and their kernel calls equal
+   to the CPU's manifest (`analysis/torch_dispatch_manifest.json`);
+   then a 16-tenant `SessionPool` at phase 16's width (each tenant
+   submits its trace's first `ANALYSIS_COFLOWS` coflows up front) and an
+   8-row `CoflowServer` configured as phase 19's (known and learned
+   tenants), each warmed by `ANALYSIS_WARM` advances of 16 δ with polls,
+   then `ANALYSIS_GUARDED` more that set the card's peak of allocated
+   memory and `ANALYSIS_GUARDED` more under `assert_no_recompiles()` and
+   `assert_no_transfers()` (`guarded`): nothing raises (no build, no
+   higher peak), no slab byte is uploaded,
+   and the guard's counted downloads equal the `io` ledger's (one byte a
+   flag read, `loop_reads`; the pool's download and control bytes);
+   negative controls, each of which must raise inside its guard (an
+   unaccounted `engine.host_to_device`, a bare `.to("cuda")`, an
+   unaccounted `.cpu()`, and a first K1 call in a fresh child process
+   with an empty build directory, a build); which pulls and uploads the
+   dispatch mode sees and which it does not (printed); and the
+   interleaving explorer (`analysis.explore`) with `ANALYSIS_SCHEDULES`
+   schedules on the card: 0 divergences. K1, K2, K6 and K3 are held to
+   their plain versions (`hold_kernels`) on the ticks captured from the
+   audit's entry points, the pool's and server's warm advances and the
+   explorer's pools; the phase's launches (not those of the holds) are
+   the kernels line's `analysis` path.
 
 Each phase prints its seconds (`[n] phase seconds`).
 
@@ -256,7 +288,7 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-twelve main-path runs, split by path in `launches_by_path`; K6's record
+thirteen main-path runs, split by path in `launches_by_path`; K6's record
 also lists each timed shape under `shapes`), the script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
@@ -271,6 +303,7 @@ device time.
 """
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -2375,6 +2408,349 @@ def server_main_path(tag, params):
     return counts, err
 
 
+ANALYSIS_WARM = 8        # advances that warm a pool path (captured)
+ANALYSIS_GUARDED = 4     # advances under both guards
+ANALYSIS_COFLOWS = 64    # coflows a pool tenant submits up front
+ANALYSIS_SCHEDULES = 2   # explorer schedules on the card
+STEP_KERNELS = ("contention", "tick_walk", "maxmin", "prefix_sum")
+FRESH_CHILD = r"""
+import pathlib, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.analysis.sanitize import RecompileError, assert_no_recompiles
+from repro_torch.kernels import build, ops
+build.BUILD_DIR = pathlib.Path(sys.argv[2])
+a = torch.zeros((1, 64, 150), dtype=torch.bool, device="cuda")
+active = torch.ones((1, 64), dtype=torch.bool, device="cuda")
+try:
+    with assert_no_recompiles():
+        ops.contention(a, a, active)
+except RecompileError as e:
+    print("RAISED", e)
+    sys.exit(0)
+print("NOT RAISED")
+sys.exit(1)
+"""
+
+
+def must_raise(tag, what, exc, fn):
+    """A negative control: `fn` must raise `exc`; anything else fails the
+    phase (another exception propagates)."""
+    try:
+        fn()
+    except exc as e:
+        print(f"[{tag}] control {what}: raised {type(e).__name__}: "
+              f"{str(e)[:150]}")
+        return
+    fail(f"[{tag}] control {what} did not raise")
+
+
+def step_scan(tag, what, fn, *args, **kw):
+    """`fn` under the op scan on the card, its kernel counters set to 0
+    just before: no f64 site, no host sync, and each `kernel:*` entry
+    equal to its launch counter. Returns the scan."""
+    import torch
+
+    from repro_torch.analysis.op_scan import scan
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    s = scan(fn, *args, **kw)
+    torch.cuda.synchronize()
+    return check_scan(tag, what, s, ops.launch_counts())
+
+
+def check_scan(tag, what, s, counts):
+    """The hard invariants of a scan and its kernel calls against the
+    launch counters of its run."""
+    if s.f64_sites or s.host_sites:
+        fail(f"[{tag}] {what}: f64 sites {s.f64_sites}, host sites "
+             f"{s.host_sites}")
+    launched = {k: counts[k] for k in STEP_KERNELS if counts[k]}
+    if s.kernels != launched:
+        fail(f"[{tag}] {what}: kernel calls {s.kernels} but launches "
+             f"{launched}")
+    return s
+
+
+def guarded(tag, what, advance, io, n):
+    """`n` calls of `advance()` (a warm advance and its polls) that set
+    the card's peak of allocated memory, then `n` more under
+    `assert_no_recompiles()` and `assert_no_transfers()`: nothing may
+    raise (no build, no higher peak), and the guard's counted downloads
+    must equal the `io` ledger's (one byte a flag read, the rest the
+    pool's download and control bytes)."""
+    import torch
+
+    from repro_torch.analysis.sanitize import (assert_no_recompiles,
+                                               assert_no_transfers)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        advance()
+    torch.cuda.synchronize()
+    before = dict(io)
+    with assert_no_recompiles() as built, assert_no_transfers() as g:
+        for _ in range(n):
+            advance()
+        torch.cuda.synchronize()
+    d = {k: io[k] - before[k] for k in io}
+    want = d["loop_reads"] + d["download_bytes"] + d["ctl_bytes"]
+    print(f"[{tag}] {what}: {n} warm advances under assert_no_recompiles "
+          f"and assert_no_transfers: built {built.compiles}; downloads "
+          f"{g.downloads} ({g.flag_reads} flag reads, io loop_reads "
+          f"{d['loop_reads']}), {g.download_bytes} bytes (io: "
+          f"{d['download_bytes']} + ctl {d['ctl_bytes']} + flags), uploads "
+          f"{g.uploads} ({g.upload_bytes} bytes; io upload_bytes "
+          f"{d['upload_bytes']}), dispatches {d['dispatches']}")
+    if g.flag_reads != d["loop_reads"] or g.download_bytes != want:
+        fail(f"[{tag}] {what}: the guard counted {g.flag_reads} flag reads "
+             f"and {g.download_bytes} bytes, the io ledger "
+             f"{d['loop_reads']} and {want}")
+    if d["upload_bytes"] or d["full_uploads"] or d["row_uploads"]:
+        fail(f"[{tag}] {what}: a warm clean-row advance uploaded {d}")
+    print(f"[{tag}] {what}: a warm advance downloads {g.downloads / n} "
+          f"times ({g.flag_reads / n} flag reads), {g.download_bytes / n} "
+          f"bytes; uploads {g.uploads / n} times, {g.upload_bytes / n} "
+          f"bytes (the dispatch arguments); {smi()}")
+
+
+def analysis_phase(tag, fleet, params, leaf):
+    """Phase 25: the analysis plane (`repro_torch.analysis`) on the card
+    (see the module docstring). Returns the launch counts of its
+    main-path runs (the `analysis` path) and the kernels' largest
+    deviations from their plain versions on the inputs captured from
+    the audit, the pool, the server and the explorer."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import audit, explore, sanitize
+    from repro_torch.api import SessionPool
+    from repro_torch.fabric import engine as eng
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CoflowServer
+    from repro_torch.traces.batch import pack, to_device
+    from repro_torch.traces.synth import fb_like_trace
+
+    dev = torch.device("cuda")
+    err = {n: 0.0 for n in ("contention", "tick_walk", "maxmin_rates",
+                            "prefix_sum")}
+    tally = dict.fromkeys(ops.launch_counts(), 0)
+
+    def absorb():
+        """Add the launches since the last reset to the path's counts."""
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            tally[k] += v
+        ops.reset_launches()
+
+    def hold(what, captured, caught):
+        """The kernels against their plain versions on one run's
+        captures; these launches are not the path's."""
+        e = hold_kernels(tag, what, captured, caught)
+        for k in err:
+            err[k] = max(err[k], e[k])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    # 1. the hard invariants at the fleet's shape, one tick and one
+    # session step a fabric, and a session advance's flag reads
+    for topo, name in ((None, "big switch"), (leaf, "leaf-spine")):
+        tb = to_device(pack(fleet, port_bw=params.port_bw, topology=topo),
+                       dev)
+        feats = eng.features_for(params, topology=topo)
+        ep = eng.EngineParams.from_scheduler(params, device=dev).lanes(
+            len(fleet))
+        state = eng._init_state(tb)
+        shape = tuple(tb.lo_src.shape)
+        tick = step_scan(tag, f"one tick {name} {shape}", eng._run_chunk,
+                         state, tb, ep, chunk=1, features=feats)
+        absorb()
+        z = torch.zeros_like(state.sent)
+        zb = torch.zeros_like(state.t0)
+        sstate = state._replace(rate=z, pend_sent=z.clone(), pend_tick=zb,
+                                pend_next=zb.clone())
+        n_end = torch.full((len(fleet),), 64.0, device=dev)
+        step = step_scan(tag, f"one session step {name}", eng._session_chunk,
+                         sstate, tb, ep, n_end, 1, features=feats)
+        absorb()
+        adv = step_scan(tag, f"session_advance {name}", eng.session_advance,
+                        sstate, tb, ep, n_end=np.full(len(fleet), 64.0,
+                                                      np.float32),
+                        chunk=4, features=feats)
+        absorb()
+        reads = adv.result[2]
+        if adv.crossings.get(audit.FLAG, 0) != reads:
+            fail(f"[{tag}] session_advance {name}: {adv.crossings} for "
+                 f"{reads} flag reads")
+        n_ops = sum(v for k, v in tick.ops.items()
+                    if not k.startswith("kernel:"))
+        top = sorted(((v, k) for k, v in tick.ops.items()
+                      if not k.startswith("kernel:")), reverse=True)[:8]
+        print(f"[{tag}] card histogram, one tick {name} {shape}: {n_ops} "
+              f"aten ops, kernels {tick.kernels}; top "
+              + ", ".join(f"{k} x{v}" for v, k in top))
+        print(f"[{tag}] one session step {name}: "
+              f"{sum(v for k, v in step.ops.items() if 'kernel:' not in k)}"
+              f" aten ops, kernels {step.kernels}; session_advance to 64 "
+              f"ticks: {adv.result[1]} event steps, {reads} flag reads = "
+              f"{adv.crossings.get(audit.FLAG, 0)} counted crossings; no "
+              f"f64 site, no host sync in the step")
+        del tb, state, sstate
+    # the canonical slab's entry points on the card: hard invariants and
+    # kernel calls against the CPU's manifest, every tick captured
+    manifest = _json.loads(audit.default_manifest_path().read_text())
+    with capture_ticks(1) as captured, capture_contention() as caught:
+        for name, build in sorted(audit.ENTRYPOINTS.items()):
+            s = build(device="cuda")
+            torch.cuda.synchronize()
+            check_scan(tag, f"audit {name}", s, ops.launch_counts())
+            absorb()
+            want = {k[len("kernel:"):]: v for k, v in
+                    manifest["entrypoints"][name]["ops"].items()
+                    if k.startswith("kernel:")}
+            if s.kernels != want:
+                fail(f"[{tag}] audit {name}: kernel calls {s.kernels} on "
+                     f"the card, {want} on the CPU")
+    hold("audit (canonical slab)", captured, caught)
+    del captured, caught
+    problems = audit.check_manifest(manifest, device="cuda")
+    absorb()
+    if problems:
+        fail(f"[{tag}] audit on the card: " + "; ".join(problems))
+    print(f"[{tag}] audit: {len(audit.ENTRYPOINTS)} entry points on the "
+          f"canonical slab: hard invariants hold, signatures and kernel "
+          f"calls equal the CPU manifest's (torch "
+          f"{manifest['torch_version']})")
+
+    # 2. a warm pool and a warm server under both guards
+    pool = SessionPool(params, num_ports=PORTS, max_sessions=len(fleet))
+    for tr in fleet:
+        pool.session().submit(sorted(tr.coflows, key=lambda c: (
+            c.arrival, c.cid))[:ANALYSIS_COFLOWS])
+
+    def pool_advance():
+        pool.advance(16 * params.delta)
+        pool.poll()
+
+    what = f"SessionPool ({len(fleet)} tenants x {ANALYSIS_COFLOWS} coflows)"
+    with capture_ticks(FIGURE_CAPTURE_EVERY) as captured, \
+            capture_contention() as caught:
+        for _ in range(ANALYSIS_WARM):
+            pool_advance()
+    absorb()
+    hold(f"{what}, {ANALYSIS_WARM} warm advances", captured, caught)
+    del captured, caught
+    guarded(tag, what, pool_advance, pool.io, ANALYSIS_GUARDED)
+    absorb()
+    del pool
+    srv = CoflowServer(params, num_ports=PORTS, max_tenants=SERVER_ROWS,
+                       features=(True, True, False, False, True))
+    for i in range(SERVER_ROWS):
+        srv.register(f"t{i}", mechanisms={"clairvoyant": False}
+                     if i % 2 else None)
+        tr = fb_like_trace(SERVER_COFLOWS, PORTS, seed=100 + i)
+        srv.submit(f"t{i}", sorted(tr.coflows, key=lambda c: (
+            c.arrival, c.cid))[:ANALYSIS_COFLOWS // 2])
+
+    def srv_advance():
+        srv.advance(16 * params.delta)
+        for i in range(SERVER_ROWS):
+            srv.poll(f"t{i}")
+
+    what = f"CoflowServer ({SERVER_ROWS} tenants, known and learned)"
+    with capture_ticks(FIGURE_CAPTURE_EVERY) as captured, \
+            capture_contention() as caught:
+        for _ in range(ANALYSIS_WARM):
+            srv_advance()
+    absorb()
+    hold(f"{what}, {ANALYSIS_WARM} warm advances", captured, caught)
+    del captured, caught
+    guarded(tag, what, srv_advance, srv.pool.io, ANALYSIS_GUARDED)
+    absorb()
+    del srv
+
+    # 3. negative controls: each must raise inside its guard
+    must_raise(tag, "unaccounted host_to_device", sanitize.TransferError,
+               lambda: _guard(lambda: eng.host_to_device(
+                   np.ones(4, np.float32), dev)))
+    must_raise(tag, "bare .to('cuda')", sanitize.TransferError,
+               lambda: _guard(lambda: torch.ones(4).to("cuda")))
+    must_raise(tag, "unaccounted .cpu()", sanitize.TransferError,
+               lambda: _guard(lambda: torch.ones(4, device=dev).cpu()))
+    fresh = ROOT / "build" / f"fresh_{os.getpid()}"
+    child = subprocess.run(
+        [sys.executable, "-c", FRESH_CHILD, str(ROOT / "src"), str(fresh)],
+        capture_output=True, text=True, timeout=300)
+    shutil.rmtree(fresh, ignore_errors=True)
+    if child.returncode != 0 or "nvcc contention" not in child.stdout:
+        fail(f"[{tag}] control: a first kernel call in a fresh process did "
+             f"not raise RecompileError with its build: rc "
+             f"{child.returncode}, {child.stdout[-400:]} "
+             f"{child.stderr[-400:]}")
+    print(f"[{tag}] control first K1 call in a fresh process: "
+          f"{child.stdout.strip()[:300]}")
+    t = torch.arange(4, dtype=torch.float32, device=dev)
+    probes = {
+        "pinned non-blocking download": lambda: torch.empty(
+            4, pin_memory=True).copy_(t, non_blocking=True),
+        ".cpu()": lambda: t.cpu(), ".item()": lambda: t[0].item(),
+        "float(t)": lambda: float(t[0]), "bool(t)": lambda: bool(t[0]),
+        ".tolist()": lambda: t.tolist(),
+        "pinned non-blocking upload": lambda: torch.ones(4).pin_memory().to(
+            dev, non_blocking=True),
+        "torch.tensor(..., device)": lambda: torch.tensor([1.0], device=dev),
+    }
+    seen = {}
+    for what, probe in probes.items():
+        try:
+            _guard(probe)
+            seen[what] = False
+        except sanitize.TransferError:
+            seen[what] = True
+    print(f"[{tag}] the dispatch mode sees: "
+          f"{[w for w, v in seen.items() if v]}; does not see: "
+          f"{[w for w, v in seen.items() if not v]} (the lint rule "
+          f"host-sync-in-step covers those)")
+
+    # 4. the explorer on the card
+    buf = io.StringIO()
+    with capture_ticks(1) as captured, capture_contention() as caught:
+        rc = explore.explore(schedules=ANALYSIS_SCHEDULES, n_ops=16, seed=0,
+                             out=buf, device="cuda")
+    absorb()
+    print("\n".join(f"[{tag}] {line}" for line in
+                    buf.getvalue().splitlines()))
+    if rc:
+        fail(f"[{tag}] the explorer found a divergence on the card")
+    hold("the explorer's pools", captured, caught)
+    del captured, caught
+    for k in STEP_KERNELS:
+        if not tally[k]:
+            fail(f"[{tag}] {k} was not launched by the analysis path")
+    print(f"[{tag}] the analysis path launched K1 {tally['contention']}, K2 "
+          f"{tally['tick_walk']}, K3 {tally['maxmin']}, K6 "
+          f"{tally['prefix_sum']} ({tally['prefix_sum_rows']} rows) times")
+    if tally["ssd_scan"] or tally["flash_attention"]:
+        fail(f"[{tag}] K4 or K5 ran on the analysis path")
+    return tally, err
+
+
+def _guard(fn):
+    """`fn()` inside `assert_no_transfers()`."""
+    from repro_torch.analysis.sanitize import assert_no_transfers
+
+    with assert_no_transfers():
+        return fn()
+
+
 def main():
     import torch
 
@@ -2833,12 +3209,17 @@ def main():
     err = {k: max(err[k], ferr[k], berr[k]) for k in err}
     lap("24")
 
+    # ---- 25. the analysis plane -----------------------------------------
+    ancounts, anerr = analysis_phase("25", fleet, params, leaf)
+    err = {k: max(err[k], anerr[k]) for k in err}
+    lap("25")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
              "learned_bigswitch": ecounts, "learned_leafspine": elcounts,
              "server": svcounts, "host_plane": hcounts,
-             "figures": fcounts, "bridge": bcounts}
+             "figures": fcounts, "bridge": bcounts, "analysis": ancounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [

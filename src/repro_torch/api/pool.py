@@ -57,18 +57,25 @@ reads are counted apart, under `io["loop_reads"]`.
 scatters and gathers, their bytes, the deferred control bytes, the
 advances (`dispatches`) and the loop's flag reads.
 
-Not ported: the sharded slab (`shards > 1`, ROADMAP queue A item 8)
-and the reference's `accounted_transfer` sanitizer carve-outs (item 10).
+The io-counted methods run inside `analysis.sanitize.accounted_transfer`
+frames (`@_io_accounted`, the reference's ten), so a clean-row advance is
+checked transfer-free by `assert_no_transfers`: an upload the pool forgot
+to account raises, and the guard's counted downloads equal the `io`
+ledger's bytes plus one byte a flag read.
+
+Not ported: the sharded slab (`shards > 1`, ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
 import bisect
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.core import coordinator as co
 from repro_torch.core.params import SchedulerParams
 
@@ -79,6 +86,22 @@ REBASE_TICKS = 1 << 20
 # hard per-advance cap on relative ticks: an advance spanning more is
 # split into legs, each re-packing and re-basing the row
 MAX_REL_TICKS = 1 << 22
+
+
+def _io_accounted(method):
+    """Mark a SessionPool method as a sanctioned host-device crossing:
+    its transfers are what the `pool.io` counters cover, so they run
+    inside an `accounted_transfer` frame. Everything else the pool does
+    is then transfer-free under `analysis.sanitize.assert_no_transfers`,
+    the guard the pool's tests arm around clean-row advances. With no
+    guard armed it reads one flag and calls the method."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if not _san.armed:
+            return method(self, *args, **kwargs)
+        with _san.accounted_transfer():
+            return method(self, *args, **kwargs)
+    return wrapper
 
 
 def _tree_nbytes(tree) -> int:
@@ -241,6 +264,7 @@ class SessionPool:
     def sessions(self) -> list:
         return [s for s in self._sessions if s is not None]
 
+    @_io_accounted
     def session(self, params: Optional[SchedulerParams] = None,
                 mechanisms: Optional[dict] = None):
         """Admit a new tenant session, with its own scheduler parameters
@@ -345,6 +369,7 @@ class SessionPool:
         self.io["dispatches"] += 1
         self.io["loop_reads"] += reads
 
+    @_io_accounted
     def _advance(self, targets) -> None:
         """Advance the given (session, global n_end) targets; rows not
         listed keep their tick (exact no-ops in the advance)."""
@@ -388,6 +413,7 @@ class SessionPool:
             self._ticks, self._fin = tick_h, fin_h
             work = nxt
 
+    @_io_accounted
     def _dispatch_async(self, work) -> None:
         """Advance and return without the control download: the device
         (tick, finished) of the last step are parked, and a chain of
@@ -408,7 +434,15 @@ class SessionPool:
     def _download(self, tree):
         """A device tree as numpy copies: on the card every leaf goes
         into a pinned buffer by a non-blocking copy, and the host waits
-        on one event recorded after the copies."""
+        on one event recorded after the copies. A choke point of
+        `analysis.sanitize`: an armed guard sees the download, on any
+        device."""
+        if _san.armed:
+            with _san.crossing("d2h", _tree_nbytes(tree), "pool._download"):
+                return self._copy_to_host(tree)
+        return self._copy_to_host(tree)
+
+    def _copy_to_host(self, tree):
         eng = self._eng
         if self.device.type != "cuda":
             return eng.tree_map(lambda a: a.numpy().copy(), tree)
@@ -427,6 +461,7 @@ class SessionPool:
         self.io["ctl_bytes"] += tick_h.nbytes + fin_h.nbytes
         return tick_h, fin_h
 
+    @_io_accounted
     def _sync_ctl(self) -> None:
         """Consume the deferred control download of the async chain: one
         transfer of the (tick, finished) mirrors covers every advance
@@ -455,6 +490,7 @@ class SessionPool:
                 f"async session_advance stopped short of its horizon on "
                 f"rows {short} (step budget exhausted?)")
 
+    @_io_accounted
     def _plan_tick(self, sess) -> np.ndarray:
         """One wave-planning coordinator tick for one session's row; the
         other rows are masked no-ops. Returns the row's admitted mask."""
@@ -471,6 +507,7 @@ class SessionPool:
         self._materialize([sess])
         return adm_all[sess._row]
 
+    @_io_accounted
     def _ensure(self) -> None:
         """Flush host-side changes to the device slab: released rows are
         re-blanked and dirty rows re-packed, both as row scatters; clean
@@ -519,6 +556,7 @@ class SessionPool:
                 lambda x: eng.host_to_device(x.numpy(), self.device),
                 stack)
 
+    @_io_accounted
     def _scatter_dirty(self) -> None:
         from repro_torch.traces.batch import row_of, stack_rows
 
@@ -584,6 +622,7 @@ class SessionPool:
 
         blank_row(self._scratch_tb(), 0)
 
+    @_io_accounted
     def _rebuild(self) -> None:
         """Full-slab rebuild (first build, or a capacity growth): pack
         every row on the host and upload the whole slab once, the only
@@ -677,6 +716,7 @@ class SessionPool:
                 pend_next=np.float32(s._pend[1] - s._epoch))
         return row
 
+    @_io_accounted
     def _materialize(self, sessions=None,
                      completions_only: bool = False) -> None:
         """Gather the stale rows of the device state back into their
@@ -747,6 +787,7 @@ class SessionPool:
 
     # ---- debug/oracle view ----------------------------------------------
 
+    @_io_accounted
     def host_view(self) -> tuple:
         """Numpy copies of the device slab as (TraceBatch, EngineState),
         the lazily built debug and oracle view (the device tensors stay

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.core import coordinator as co
 from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric.metrics import nan_row_mean
@@ -523,7 +524,7 @@ def _run_chunk(state: EngineState, tb: TraceBatch, ep: EngineParams, *,
 
 
 def default_max_ticks(tb: TraceBatch, delta: float, slack: float = 4.0,
-                      ) -> int:
+                      ) -> int:  # saath: lint-ok(host-pull-unaccounted): reads the host-side numpy TraceBatch, before its upload
     """The reference's horizon bound: at every tick the head-of-line
     coflow progresses at its bottleneck rate, so the makespan is at most
     last_arrival + the serial bottleneck time (x slack). Takes a
@@ -673,13 +674,20 @@ def _drive(tb: TraceBatch, ep: EngineParams, max_ticks: int, chunk: int,
     while events < max_ticks:
         state = _run_chunk(state, tb, ep, chunk=chunk, features=features)
         events += chunk
-        if bool(state.finished.all()):
+        if bool(state.finished.all()):  # saath: lint-ok(host-pull-unaccounted): the replay's one host read a chunk, the reference's loop condition
             break
     else:
+        unfinished = int((~state.finished).sum())  # saath: lint-ok(host-pull-unaccounted): the error message of a replay that ran out of steps
         raise RuntimeError(
-            f"torch engine: {int((~state.finished).sum())} coflows "
-            f"unfinished after {events} event steps (raise max_ticks or "
-            f"check the trace)")
+            f"torch engine: {unfinished} coflows unfinished after {events} "
+            f"event steps (raise max_ticks or check the trace)")
+    return _results(state, tb, events)
+
+
+def _results(state: EngineState, tb: TraceBatch, events: int
+             ) -> EngineResult:  # saath: lint-ok(host-pull-unaccounted): a replay's results come to the host once, after its loop
+    """The finished replay's per-coflow and per-flow results as f64
+    numpy (NaN for unfinished and padded entries)."""
     fct = state.fct.double().cpu().numpy()
     fct[~state.done.cpu().numpy()] = np.nan
     fct[~tb.flow_valid.cpu().numpy()] = np.nan
@@ -695,8 +703,17 @@ def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A numpy array on `device`: on a card through a pinned host buffer
     with a non-blocking copy (the caching host allocator keeps the
     buffer until the copy has run), so that no upload stalls the
-    stream's host thread."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    stream's host thread. A choke point of `analysis.sanitize`: an
+    armed guard sees the upload, on any device."""
+    a = np.ascontiguousarray(a)
+    if _san.armed:
+        with _san.crossing("h2d", a.nbytes, "engine.host_to_device"):
+            return _upload(a, device)
+    return _upload(a, device)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(a)  # saath: lint-ok(implicit-dtype): the callers stage typed host arrays, each in its slab leaf's dtype
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -733,6 +750,18 @@ def _lanes_open(state: EngineState, n_end: torch.Tensor) -> torch.Tensor:
     return ~closed.all()
 
 
+def _read_flag(flag: torch.Tensor) -> bool:  # saath: lint-ok(host-pull-unaccounted): the session loop's one host read a chunk, counted as io["loop_reads"] and reported to the sanitizer
+    """The session loop's read of its one-element flag: the loop's only
+    host synchronization, a download counted by construction (the
+    caller's `io["loop_reads"]`) and a choke point of
+    `analysis.sanitize`."""
+    if _san.armed:
+        with _san.crossing("d2h", flag.element_size(),
+                           "engine.session_advance", accounted=True):
+            return bool(flag)
+    return bool(flag)
+
+
 def session_advance(state: EngineState, tb: TraceBatch, ep: EngineParams,
                     *, n_end, chunk: int = 32,
                     features: tuple = (True, True, False, False, False),
@@ -758,7 +787,7 @@ def session_advance(state: EngineState, tb: TraceBatch, ep: EngineParams,
         state = _session_chunk(state, tb, ep, ne, k, features=features)
         steps += k
         reads += 1
-        if not bool(_lanes_open(state, ne)):
+        if not _read_flag(_lanes_open(state, ne)):
             return state, steps, reads
         n *= 2
     raise RuntimeError(

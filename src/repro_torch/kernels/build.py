@@ -46,6 +46,9 @@ SOURCES = {
 }
 
 _loaded: dict = {}
+# the kernels this process has compiled, in build order (the sanitizer
+# `analysis.sanitize.assert_no_recompiles` counts new entries)
+built: list = []
 # wall seconds this process has spent waiting on nvcc (`build_all`), so
 # that a first run's time can report its kernel builds apart
 build_seconds = 0.0
@@ -122,6 +125,7 @@ def build_all(names=None, *, ptxas_info: bool = False) -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            built.append(n)
     build_seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -38,8 +38,16 @@ def _library():
         lib.saath_contention.restype = ctypes.c_int
         lib.saath_contention_scratch.argtypes = [ctypes.c_int] * 3
         lib.saath_contention_scratch.restype = ctypes.c_longlong
+        lib.saath_contention_configs.argtypes = []
+        lib.saath_contention_configs.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def launch_configs() -> int:
+    """Launch configurations the loaded library has worked out and kept
+    (one per (device, P)); 0 before it is loaded."""
+    return 0 if _lib is None else int(_lib.saath_contention_configs())
 
 
 def contention_cuda(a_send: torch.Tensor, a_recv: torch.Tensor,
@@ -80,4 +88,4 @@ def contention_cuda(a_send: torch.Tensor, a_recv: torch.Tensor,
     return out
 
 
-__all__ = ["contention_cuda", "MAX_PORTS"]
+__all__ = ["contention_cuda", "launch_configs", "MAX_PORTS"]

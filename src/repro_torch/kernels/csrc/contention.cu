@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 
 namespace cg = cooperative_groups;
@@ -225,6 +226,10 @@ contention(const void* __restrict__ a_send, const void* __restrict__ a_recv,
   }
 }
 
+// Launch configurations worked out so far (one per (device, P)), for the
+// port's build sanitizer (`analysis.sanitize.assert_no_recompiles`).
+std::atomic<long long> g_configs{0};
+
 // The most co-resident blocks of contention<ELT> on the current device
 // for this P (its shared memory depends on P alone). Worked out, with the
 // shared-memory attribute raised to the most any kept P needs, on the
@@ -262,6 +267,7 @@ cudaError_t resident_blocks(int P, int smem, long long* most) {
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *most = (long long)sms *
           (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM);
+  g_configs.fetch_add(1);
   cache[used < 16 ? used++ : 15] = {dev, P, smem, *most};
   return cudaSuccess;
 }
@@ -300,6 +306,10 @@ int launch(const void* a_send, const void* a_recv, const void* active,
 }
 
 }  // namespace
+
+// Launch configurations this library has worked out and kept since it was
+// loaded.
+extern "C" long long saath_contention_configs() { return g_configs.load(); }
 
 // Words of the scratch the caller allocates (32-byte aligned): the masks
 // (B, 2, P, WC), then the rows (B, C, 2, WP).

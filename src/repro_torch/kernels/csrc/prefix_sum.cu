@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 
 namespace cg = cooperative_groups;
@@ -357,6 +358,10 @@ __global__ void __launch_bounds__(THREADS, MAX_BLOCKS_PER_SM)
   }
 }
 
+// Launch configurations worked out so far (one per device), for the
+// port's build sanitizer (`analysis.sanitize.assert_no_recompiles`).
+std::atomic<long long> g_configs{0};
+
 // The most co-resident blocks of prefix_sum_kernel on the current
 // device, worked out on its first call and kept, so that a step's call
 // makes no host query before its launch.
@@ -383,11 +388,16 @@ cudaError_t resident_blocks(long long* most) {
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *most = (long long)sms *
           (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM);
+  g_configs.fetch_add(1);
   cache[used < 16 ? used++ : 15] = {dev, *most};
   return cudaSuccess;
 }
 
 }  // namespace
+
+// Launch configurations this library has worked out and kept since it was
+// loaded.
+extern "C" long long saath_prefix_sum_configs() { return g_configs.load(); }
 
 // Floats of global scratch a call at (R, F) needs (the raw level-2 and
 // level-3 totals of every row), or -1 when a row is longer than 2^23.

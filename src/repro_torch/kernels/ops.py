@@ -7,9 +7,16 @@ version), a CPU tensor takes the plain PyTorch version in `ref.py`.
 `chip_smoke.py` can hold each kernel against its plain version on the
 card. Each kernel module keeps a launch counter (`launch_counts`); K6
 also counts the rows it summed.
+
+Every entry point is a boundary an observer can see: while
+`analysis.op_scan` scans a callable, each call here is one
+`kernel:<name>` entry of its histogram (the CUDA kernels launch through
+`ctypes`, where no dispatch mode sees them) and the scan is suspended
+inside it, so the plain versions' ops are not counted either.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,6 +33,28 @@ from repro_torch.kernels.ref import (WalkFlows, contention_ref,
                                      tick_walk_ref)
 
 
+# objects with kernel_enter(name) / kernel_exit(name), called around
+# every entry point below (one list read a call when none is set)
+observers: list = []
+
+
+def _boundary(name: str):
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not observers:
+                return fn(*args, **kwargs)
+            for o in observers:
+                o.kernel_enter(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for o in observers:
+                    o.kernel_exit(name)
+        return call
+    return wrap
+
+
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
     if force is None:
         return t.is_cuda
@@ -34,6 +63,7 @@ def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
     raise ValueError(f"unknown force {force!r}; available: None, 'ref'")
 
 
+@_boundary("contention")
 def contention(a_send, a_recv, active, *, force: Optional[str] = None):
     """(B, C, P) f32, bf16 or bool incidence x2 + (B, C) active ->
     (B, C) int32 k_c."""
@@ -42,6 +72,7 @@ def contention(a_send, a_recv, active, *, force: Optional[str] = None):
     return contention_ref(a_send, a_recv, active)
 
 
+@_boundary("tick_walk")
 def tick_walk(order, n_live, cnt, avail0, min_rate, wc,
               flows: Optional[WalkFlows] = None, *, num_links: int = 0,
               admit_only: bool = False, force: Optional[str] = None):
@@ -55,6 +86,7 @@ def tick_walk(order, n_live, cnt, avail0, min_rate, wc,
                          num_links=num_links, admit_only=admit_only)
 
 
+@_boundary("maxmin")
 def maxmin_rates(src, dst, cand, avail, *, up=None, dn=None,
                  num_links: int = 0, force: Optional[str] = None):
     """Max-min fair rates of the candidate flows (B, F) over the W row
@@ -66,6 +98,7 @@ def maxmin_rates(src, dst, cand, avail, *, up=None, dn=None,
                       num_links=num_links)
 
 
+@_boundary("ssd_scan")
 def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
              force: Optional[str] = None):
     """Mamba-2 SSD chunked scan, any L: x (B, L, H, Dh), dt (B, L, H),
@@ -79,6 +112,7 @@ def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
     return _ssd.ssd_scan_cuda(x, dt, a, b, c, init_state=init_state, lc=lc)
 
 
+@_boundary("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     force: Optional[str] = None):
     """Forward GQA attention: q (B, H, S, D), k and v (B, Hkv, T, D) ->
@@ -94,6 +128,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
+@_boundary("prefix_sum")
 def prefix_sum(x, *, force: Optional[str] = None):
     """(B, F) f32 -> (B, F + 1) f32: a zero column, then each row's
     inclusive prefix sums in the JAX package's scan order (see

@@ -45,8 +45,16 @@ def _library():
         lib.saath_prefix_sum_scratch.argtypes = [ctypes.c_int,
                                                  ctypes.c_longlong]
         lib.saath_prefix_sum_scratch.restype = ctypes.c_longlong
+        lib.saath_prefix_sum_configs.argtypes = []
+        lib.saath_prefix_sum_configs.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def launch_configs() -> int:
+    """Launch configurations the loaded library has worked out and kept
+    (one per device); 0 before it is loaded."""
+    return 0 if _lib is None else int(_lib.saath_prefix_sum_configs())
 
 
 def _launch(lib, x, out, scratch, B, F) -> int:
@@ -96,4 +104,4 @@ def prefix_sum_cuda(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-__all__ = ["prefix_sum_cuda"]
+__all__ = ["prefix_sum_cuda", "launch_configs"]

@@ -252,9 +252,14 @@ class CoflowServer:
         """Release a tenant's row (unfinished coflows are dropped)."""
         sess = self._session(tenant)
         self.pool.release(sess)
-        for table in (self._tenants, self._pending, self._agg, self._quota,
-                      self._deferred, self._live_bytes):
-            del table[tenant]
+        # deletes, not reads: the coherence checker holds every read of
+        # `_pending` to a preceding harvest
+        del self._tenants[tenant]
+        del self._pending[tenant]
+        del self._agg[tenant]
+        del self._quota[tenant]
+        del self._deferred[tenant]
+        del self._live_bytes[tenant]
 
     def _session(self, tenant: str):
         try:
