@@ -15,10 +15,12 @@ pilot-learned coflow sizes, and the `repro_torch.launch.serve.
 CoflowServer` front door; then the port's drivers, and the event-driven
 host plane replaying one FB-like trace under each of the nine registry
 policies, then the paper's figure drivers with their host baselines,
-and the runtime bridge's wave planner and wave-ordered all-reduce, and
-last the analysis plane's checks of the device step — and holds each
-hand-written CUDA kernel of those paths against its plain
-PyTorch version on the same inputs:
+and the runtime bridge's wave planner and wave-ordered all-reduce, the
+analysis plane's checks of the device step, and last Qwen3-MoE-235B-
+A22B, DeepSeek-V2-236B (MLA) and Jamba-v0.1-52B (the Mamba/attention
+hybrid) served at their published widths with every expert and the
+depth cut — and holds each hand-written CUDA kernel of those paths
+against its plain PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the six kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -280,7 +282,46 @@ PyTorch version on the same inputs:
    their plain versions (`hold_kernels`) on the ticks captured from the
    audit's entry points, the pool's and server's warm advances and the
    explorer's pools; the phase's launches (not those of the holds) are
-   the kernels line's `analysis` path.
+   the kernels line's `analysis` path;
+26. K5 at MLA's widths (D_qk, D_v) = (192, 128) against
+   `flash_attention_ref` on `MLA_CASES` (the smoke heads, a chunk at
+   q_offset 250 against T > S, a ragged S against T > S, 16 heads of
+   300 rows), f32 and bf16, causal and not, at the reference's bars
+   (atol 2e-6 f32, 2e-2 bf16), printing max |o| beside max |Δo|
+   (ROADMAP C8); then at DeepSeek-V2's prefill shape (4, 128, 128,
+   1000, 1000, 192, 128) and at Qwen3-MoE's (G = 16) and Jamba's (G = 4)
+   GQA prefill shapes, f32 and bf16, each with its time beside the
+   plain version's, SDPA's (null with the error when no backend of the
+   install takes the shape) and the bound, with TFLOP/s and the bound
+   share (`attention_shape_record`); K4 at Jamba's Mamba prefill shape
+   (4, 1000, 128, G = 1, 64, N = 16, lc = 128) against `ssd_chunked_ref`
+   at phase 10's bar, f32 and bf16, with its time beside the plain
+   version's and the bound. These go under `shapes` of K5's and K4's
+   records in the kernels line;
+27. as 11 for the three MoE-bearing models (`MOE_GOLDENS`): published
+   widths, depth and routed experts cut as each golden's `config_cuts`
+   say (Qwen3-MoE 2 layers, 16 of 128 experts; DeepSeek-V2 2 layers,
+   the dense one and an MoE one, 16 of 160 routed experts and both
+   shared; Jamba one period of 8 layers, 4 of 16 experts), the default
+   capacity factor 1.25 (the routers drop pairs), f32, weights from
+   `numpy_params(cfg, seed=0)`, against
+   `tests/data/torch_port_{qwen3_moe,deepseek_v2,jamba}_golden.json`:
+   K4 once per Mamba layer and K5 once per attention layer, top-8
+   logits to atol 2e-3, tokens equal (the tie rule), per-layer cache
+   norms (k/v, ckv/krope, ssd) to rtol 1e-4;
+28. as 12 for the three serve main paths at their published widths
+   with every expert, bf16, seed-0 weights from `lm.init_model` on the
+   card, depth cut to keep at least one whole period
+   (`MOE_SERVE_LAYERS`: Qwen3-MoE 4 layers, DeepSeek-V2 4 (the dense
+   one and 3 MoE), Jamba 8), served by `ServeSession(arch, model=...)`:
+   4 prompts of 1000 tokens and 64 greedy tokens, counters as in 12 (K5
+   = 4, 4, 1 and K4 = 0, 0, 7 per prefill, every other kernel 0);
+   prefill ms, decode ms per token, tokens/s and peak memory (the depth
+   cut makes the host's share larger than in a deployment); then, the
+   bf16 model freed, the f32 pair at one period's depth (1, 2 and 8
+   layers) with the plain prefill path and with the kernels; then a
+   bf16 pair of DeepSeek-V2 at 2 layers (weights from `lm.init_model`),
+   the plain attention against K5 (192, 128), logits to atol 0.1.
 
 Each phase prints its seconds (`[n] phase seconds`).
 
@@ -288,8 +329,9 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-thirteen main-path runs, split by path in `launches_by_path`; K6's record
-also lists each timed shape under `shapes`), the script's
+sixteen main-path runs, split by path in `launches_by_path`; K4's, K5's
+and K6's records also list further timed shapes under `shapes`), the
+script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
@@ -350,6 +392,39 @@ FLASH_CASES = [(1, 1, 1, 16, 16, 32, 0), (2, 4, 2, 64, 64, 64, 0),
                (1, 24, 2, 300, 300, 128, 0), (2, 8, 2, 150, 400, 128, 250)]
 FLASH_SERVE = (4, 24, 2, 2000, 2000, 128, 0)
 ATTN_BATCH, ATTN_PROMPT, ATTN_TOKENS = 4, 2000, 64
+# phases 26-28: the MoE, MLA and hybrid architectures
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-236b", "jamba-v0.1-52b")
+# (B, H, Hkv, S, T, D, Dv, q_offset): K5 at MLA's widths (192, 128): the
+# smoke heads, a chunk at q_offset 250 against T > S, a ragged S against
+# T > S, 16 heads of 300 rows; then DeepSeek-V2's prefill shape (4
+# prompts of 1000 tokens, 128 heads)
+MLA_CASES = [(1, 2, 2, 16, 16, 192, 128, 0), (2, 4, 2, 150, 400, 192, 128, 250),
+             (2, 4, 4, 23, 40, 192, 128, 17), (1, 16, 16, 300, 300, 192, 128, 0)]
+MLA_SERVE = (4, 128, 128, 1000, 1000, 192, 128, 0)
+# K5 at the GQA prefill shapes of Qwen3-MoE (G = 16) and Jamba (G = 4)
+GQA_SERVE = {"qwen3-moe-235b-a22b": (4, 64, 4, 1000, 1000, 128, 128, 0),
+             "jamba-v0.1-52b": (4, 32, 8, 1000, 1000, 128, 128, 0)}
+# K4 at Jamba's Mamba prefill shape (N = 16; 1000 tokens, no padding)
+SSD_JAMBA = (4, 1000, 128, 1, 64, 16, 128)
+# phase 27's goldens (the JAX package on the CPU, published widths, depth
+# and routed experts cut; tests/test_torch_lm_moe.py regenerates them)
+# and the per-layer cache norms each holds ({golden field: cache key})
+MOE_GOLDENS = {
+    "qwen3-moe-235b-a22b": ("torch_port_qwen3_moe_golden.json",
+                            {"k_cache_norm": "k", "v_cache_norm": "v"}),
+    "deepseek-v2-236b": ("torch_port_deepseek_v2_golden.json",
+                         {"ckv_cache_norm": "ckv",
+                          "krope_cache_norm": "krope"}),
+    "jamba-v0.1-52b": ("torch_port_jamba_golden.json",
+                       {"k_cache_norm": "k", "v_cache_norm": "v",
+                        "ssd_state_norm": "ssd"}),
+}
+# phase 28: bf16 depth (at least one whole period, all experts) and the
+# f32 pair's depth (one period, the leading dense layer included)
+MOE_SERVE_LAYERS = {"qwen3-moe-235b-a22b": (4, 1),
+                    "deepseek-v2-236b": (4, 2),
+                    "jamba-v0.1-52b": (8, 8)}
+MOE_BATCH, MOE_PROMPT, MOE_TOKENS = 4, 1000, 64
 TIE_GAP = 1e-3       # a greedy token may differ where top-2 is this close
 LOGIT_ATOL = 2e-3    # the JAX package's prefill bar (test_arch_smoke.py)
 BF16_LOGIT_ATOL = 0.1  # the bf16 logit bar (ROADMAP C5)
@@ -975,44 +1050,57 @@ def ssd_bound_ms(shape, elt):
     B, L, H, G, Dh, N, lc = shape
     nbytes = elt * (2 * B * L * H * Dh + B * L * H + 2 * B * L * G * N) \
         + 4 * H + 4 * B * H * Dh * N
-    tri = lc * (lc + 1) // 2
-    gram = B * G * (L // lc) * tri * N
-    rest = B * H * (L // lc) * (tri * Dh + 2 * lc * Dh * N)
+    # chunk lengths: full chunks, then the ragged last one (no padding)
+    lens = [min(lc, L - j) for j in range(0, L, lc)]
+    tri = sum(n * (n + 1) // 2 for n in lens)
+    gram = B * G * tri * N
+    rest = B * H * (tri * Dh + 2 * L * Dh * N)
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = 2 * gram / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) \
         + 2 * rest / F32_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def attention_widths(shape):
+    """(B, H, Hkv, S, T, D, Dv, q_offset) of an attention shape given as
+    that 8-tuple or as (B, H, Hkv, S, T, D, q_offset) with Dv = D."""
+    if len(shape) == 8:
+        return shape
+    B, H, Hkv, S, T, D, q_offset = shape
+    return B, H, Hkv, S, T, D, D, q_offset
+
+
 def flash_inputs(shape, dtype, seed, dev):
-    """Seeded q (B, H, S, D), k and v (B, Hkv, T, D)."""
+    """Seeded q (B, H, S, D), k (B, Hkv, T, D) and v (B, Hkv, T, Dv)."""
     import numpy as np
     import torch
 
-    B, H, Hkv, S, T, D, _ = shape
+    B, H, Hkv, S, T, D, Dv, _ = attention_widths(shape)
     rng = np.random.default_rng(seed)
     return [torch.as_tensor(rng.normal(size=s).astype(np.float32),
                             device=dev).to(dtype)
-            for s in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D))]
+            for s in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv))]
 
 
-def attention_bound_ms(shape, elt):
-    """Of causal attention at `shape`. Bytes: q and o once (B H S D
-    each), k and v once per KV head (B Hkv T D each), elt bytes an
-    element. Operations: 2 D multiply-adds (q . k and p v) for each
-    unmasked (query, key) pair, counted exactly: sum_i min(T, q_offset +
-    i + 1) pairs a (batch, head); at the bf16 tensor-core rate for bf16
-    inputs (the 2e-2 bar admits bf16 products), at the non-tensor f32
-    rate for f32 (TF32 fails the 2e-6 bar). Returns (ms, what bounds it,
-    pairs)."""
+def attention_bound_ms(shape, elt, causal=True):
+    """Of attention at `shape` (see `attention_widths`). Bytes: q once (B
+    H S D) and o once (B H S Dv), k and v once per KV head (B Hkv T D
+    and B Hkv T Dv), elt bytes an element. Operations: D + Dv
+    multiply-adds (q . k and p v) for each unmasked (query, key) pair,
+    counted exactly: sum_i min(T, q_offset + i + 1) pairs a (batch,
+    head) under `causal`, S T without; at the bf16 tensor-core rate for
+    bf16 inputs (the 2e-2 bar admits bf16 products), at the non-tensor
+    f32 rate for f32 (TF32 fails the 2e-6 bar). Returns (ms, what bounds
+    it, pairs)."""
     import numpy as np
 
-    B, H, Hkv, S, T, D, q_offset = shape
-    nbytes = elt * (2 * B * H * S * D + 2 * B * Hkv * T * D)
-    pairs = B * H * int(np.minimum(T, q_offset + np.arange(S) + 1).sum())
+    B, H, Hkv, S, T, D, Dv, q_offset = attention_widths(shape)
+    nbytes = elt * (B * H * S * (D + Dv) + B * Hkv * T * (D + Dv))
+    pairs = B * H * (int(np.minimum(T, q_offset + np.arange(S) + 1).sum())
+                     if causal else S * T)
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = 2 * (2 * D * pairs) / (BF16_OPS_PER_S if elt == 2
-                                 else F32_OPS_PER_S)
+    t_o = 2 * (D + Dv) * pairs / (BF16_OPS_PER_S if elt == 2
+                                  else F32_OPS_PER_S)
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
             pairs)
 
@@ -1050,14 +1138,37 @@ def check_tokens(tag, got, want, gaps):
     return upto
 
 
-def golden_parity(tag, arch, path, kernel, norms):
-    """`arch` at its published width, depth cut to the golden's, f32,
-    weights from `numpy_params(cfg, seed)` served by
-    `ServeSession(model=...)`: its prefill launches `kernel` once per
-    layer and no other kernel; top-8 logits within LOGIT_ATOL of the
-    JAX package's numbers in the golden at `path`, tokens equal (the tie
+def expected_launches(cfg):
+    """{kernel: launches} of one prefill of `cfg`'s stack: K4 for each
+    Mamba layer, K5 for each GQA or MLA layer, every other kernel 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    want = {n: 0 for n in ops.launch_counts()}
+    for mixer, _, _ in lm.layer_plan(cfg, cfg.num_layers, False):
+        want["ssd_scan" if mixer == "mamba" else "flash_attention"] += 1
+    return want
+
+
+def check_launches(tag, what, counts, cfg):
+    """Fail unless `counts` are one prefill's `expected_launches`."""
+    want = expected_launches(cfg)
+    got = {n: counts[n] for n in want}
+    if got != want:
+        fail(f"[{tag}] {what} launched {got}; expected {want}")
+
+
+def golden_parity(tag, arch, path, norms):
+    """`arch` at its published width, depth (and, for the MoE models,
+    routed experts) cut as the golden's `config_cuts` say (its
+    `num_layers` alone in the older goldens), f32, weights from
+    `numpy_params(cfg, seed)` served by `ServeSession(model=...)`: its
+    prefill launches K4 once per Mamba layer, K5 once per attention
+    layer and no other kernel; top-8 logits within LOGIT_ATOL of the JAX
+    package's numbers in the golden at `path`, tokens equal (the tie
     rule of `check_tokens`), and the per-layer cache norms (summed in
-    f64) named by `norms` ({golden field: cache key}) to rtol 1e-4."""
+    f64) named by `norms` ({golden field: cache key}, over the layers
+    whose cache has the key) to rtol 1e-4."""
     import dataclasses
 
     import numpy as np
@@ -1070,10 +1181,11 @@ def golden_parity(tag, arch, path, kernel, norms):
 
     dev = torch.device("cuda")
     gold = json.loads(path.read_text())
-    cfg = dataclasses.replace(get_config(arch),
-                              num_layers=gold["num_layers"],
-                              dtype="float32")
+    cuts = gold.get("config_cuts", {"num_layers": gold["num_layers"]})
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cuts)
+    t0 = time.perf_counter()
     weights, meta = lm.numpy_params(cfg, seed=gold["weights_seed"])
+    t_draw = time.perf_counter() - t0
     n_gold = len(gold["tokens"][0])
     B, P = len(gold["prompts"]), len(gold["prompts"][0])
     sess = ServeSession(arch, batch=B, max_len=P + n_gold,
@@ -1082,11 +1194,7 @@ def golden_parity(tag, arch, path, kernel, norms):
     del weights
     ops.reset_launches()
     out = list(sess.stream(gold["prompts"], n_gold))
-    counts = ops.launch_counts()
-    if counts[kernel] != cfg.num_layers or any(
-            counts[n] for n in counts if n != kernel):
-        fail(f"[{tag}] the parity run launched {counts}; expected {kernel} "
-             f"once per layer and no other kernel")
+    check_launches(tag, "the parity run", ops.launch_counts(), cfg)
     logits = [lg.float() for _, lg in out]
     toks = torch.stack([t for t, _ in out], 1)
     with torch.inference_mode():
@@ -1097,9 +1205,10 @@ def golden_parity(tag, arch, path, kernel, norms):
     top = logits[0].gather(1, idx)
     want = torch.as_tensor(gold["top8_value"], device=dev)
     lerr = float((top - want).abs().max())
-    got = {f: [float(c[key].double().norm()) for c in cache]
+    got = {f: [float(c[key].double().norm()) for c in cache if key in c]
            for f, key in norms.items()}
-    print(f"[{tag}] {arch} full width, {cfg.num_layers} layers, f32, {B} x "
+    print(f"[{tag}] {arch} full width, cut {cuts}, f32 (weights drawn in "
+          f"{t_draw:.1f} s), {B} x "
           f"{P} tokens: top-8 logits max abs error {lerr:.3e} (bar "
           f"{LOGIT_ATOL}); logits norm "
           f"{logits[0].double().norm(dim=1).tolist()} vs JAX "
@@ -1115,18 +1224,41 @@ def golden_parity(tag, arch, path, kernel, norms):
                  gold["top2_gap"])
 
 
-def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
-    """`ServeSession(arch, smoke=False)`, the published width and depth
-    in the config's dtype, `batch` prompts of `prompt_len` tokens (numpy
-    `default_rng(1)`) and `n_tokens` greedy tokens, with every launch
-    counter set to 0 just before and read just after: `kernel` once per
-    layer (in the prefill), every other kernel 0, finite logits. Prints
-    prefill ms, decode ms per token, tokens/s and peak device memory,
-    the first step's logit gap to the plain path in the same dtype (and,
-    with `--profile`, `profile_serve`). Then the same session in
-    f32 with the plain prefill path and with the kernels, held to
-    LOGIT_ATOL over the steps with equal histories. Returns the launch
-    counts of the main-path run."""
+def serve_model(arch, layers, dtype, dev):
+    """The model of `arch` at its published widths in `dtype` with
+    random weights from seed 0 on `dev`: the published depth when
+    `layers` is None (`ServeSession(arch, smoke=False)`'s), else cut to
+    `layers` (`lm.init_model`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    if layers is None:
+        return ServeSession(arch, smoke=False, device=dev, seed=0,
+                            dtype=dtype).model
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return lm.init_model(cfg, seed=0, device=dev)
+
+
+def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
+                    f32_layers=None):
+    """`ServeSession(arch, ...)` on `serve_model(arch, layers, None)`:
+    the published widths in the config's dtype, the published depth
+    (`smoke=False`) or a depth cut to `layers`; `batch` prompts of
+    `prompt_len` tokens (numpy `default_rng(1)`) and `n_tokens` greedy
+    tokens, with every launch counter set to 0 just before and read just
+    after: K4 once per Mamba layer and K5 once per attention layer (in
+    the prefill), every other kernel 0, finite logits. Prints prefill
+    ms, decode ms per token, tokens/s and peak device memory, the first
+    step's logit gap to the plain path in the same dtype (and, with
+    `--profile`, `profile_serve`). Then, the model freed, the same
+    session in f32 (at `f32_layers` when given) with the plain prefill
+    path and with the kernels, held to LOGIT_ATOL over the steps with
+    equal histories. Returns the launch counts of the main-path run."""
     import numpy as np
     import torch
 
@@ -1141,8 +1273,8 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    sess = ServeSession(arch, smoke=False, batch=batch, max_len=max_len,
-                        device=dev, seed=0)
+    sess = ServeSession(arch, batch=batch, max_len=max_len,
+                        model=serve_model(arch, layers, None, dev))
     sess.generate(prompts, 2)                     # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1159,19 +1291,19 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
     served = torch.stack([tok for tok, _ in out], 1)
     prefill_ms = 1e3 * (t1 - t0)
     decode_ms = 1e3 * (t2 - t1) / (n_tokens - 1)
-    print(f"[{tag}] ServeSession({arch!r}, smoke=False): "
+    depth = ("the published depth" if layers is None else
+             f"depth cut to {layers} of {get_config(arch).num_layers} "
+             f"layers (the host's share of each step is larger than in a "
+             f"deployment)")
+    print(f"[{tag}] ServeSession({arch!r}), {depth}: "
           f"{sess.cfg.num_layers} layers, d_model {sess.cfg.d_model}, "
           f"{sess.cfg.dtype}; {batch} x {prompt_len}-token prompts, "
           f"{n_tokens} greedy tokens: prefill {prefill_ms:.3f} ms, decode "
           f"{decode_ms:.3f} ms per token ({batch * 1e3 / decode_ms:.1f} "
           f"tokens/s), peak device memory {peak / 2**20:.1f} MiB above the "
           f"{base / 2**20:.1f} MiB held before, launches {counts}; {smi()}")
-    if counts[kernel] != sess.cfg.num_layers:
-        fail(f"[{tag}] {kernel} launched {counts[kernel]} times for one "
-             f"prefill of {sess.cfg.num_layers} layers")
-    if any(counts[n] for n in counts if n != kernel):
-        fail(f"[{tag}] another kernel than {kernel} ran on the {arch} serve "
-             f"path")
+    check_launches(tag, f"one prefill of the {arch} serve path", counts,
+                   sess.cfg)
     if served.shape != (batch, n_tokens) or not (
             (served >= 0) & (served < sess.cfg.vocab_size)).all() or not \
             all(torch.isfinite(lg.float()).all() for _, lg in out):
@@ -1180,8 +1312,8 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
                          model=sess.model)
     _, plain_first = next(plain.stream(prompts, 1))
     gap = float((first[1].float() - plain_first.float()).abs().max())
-    print(f"[{tag}] {sess.cfg.dtype} session, first step: {kernel} vs its "
-          f"plain path: logits max abs gap {gap:.3e} over "
+    print(f"[{tag}] {sess.cfg.dtype} session, first step: kernels vs their "
+          f"plain paths: logits max abs gap {gap:.3e} over "
           f"{sess.cfg.num_layers} layers (printed, no bar)")
     del plain, plain_first
     if "--profile" in sys.argv[1:]:
@@ -1189,20 +1321,23 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
     del sess, stream, first, out
     runs = {}
     torch.cuda.empty_cache()
-    m32 = ServeSession(arch, smoke=False, batch=batch, max_len=max_len,
-                       device=dev, seed=0, dtype="float32").model
+    m32 = serve_model(arch, f32_layers or layers, "float32", dev)
     for force in ("ref", None):
         s32 = ServeSession(arch, batch=batch, max_len=max_len, force=force,
                            model=m32)
         ops.reset_launches()
         res = list(s32.stream(prompts, n_tokens))
-        n = ops.launch_counts()[kernel]
-        if n != (0 if force else s32.cfg.num_layers):
-            fail(f"[{tag}] the f32 session (force={force}) launched "
-                 f"{kernel} {n} times")
+        if force:
+            if any(ops.launch_counts().values()):
+                fail(f"[{tag}] the f32 session (force={force}) launched "
+                     f"{ops.launch_counts()}")
+        else:
+            check_launches(tag, "the f32 session", ops.launch_counts(),
+                           m32.cfg)
         runs[force] = ([lg for _, lg in res],
                        torch.stack([t for t, _ in res], 1).cpu())
         del s32, res
+    del m32
     (ref_l, ref_t), (k_l, k_t) = runs["ref"], runs[None]
     top2 = [lg.topk(2, dim=1).values for lg in ref_l]
     gaps = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).tolist()
@@ -1212,18 +1347,20 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, kernel):
         rows = [r for r in range(batch) if i <= upto[r]]
         if rows:
             err = max(err, float((g[rows] - w[rows]).abs().max()))
-    print(f"[{tag}] f32 session, {kernel} vs its plain path: logits max abs "
-          f"error {err:.3e} over the steps with equal histories (bar "
+    print(f"[{tag}] f32 session, kernels vs their plain paths: logits max "
+          f"abs error {err:.3e} over the steps with equal histories (bar "
           f"{LOGIT_ATOL})")
     if err > LOGIT_ATOL:
-        fail(f"[{tag}] the f32 session's logits through {kernel} differ "
+        fail(f"[{tag}] the f32 session's logits through the kernels differ "
              f"from the plain path's")
+    torch.cuda.empty_cache()
     return counts
 
 
-def bf16_pair(tag, arch, batch, prompt_len, kernel):
+def bf16_pair(tag, arch, batch, prompt_len, kernel, numpy_weights=True):
     """`arch` at its published width, 2 layers, in the config's bf16,
-    weights from `numpy_params(cfg, seed=0)`: a prefill of `batch`
+    weights from `numpy_params(cfg, seed=0)` (`numpy_weights`) or
+    `lm.init_model(cfg, seed=0)` on the card: a prefill of `batch`
     prompts of `prompt_len` tokens (numpy `default_rng(1)`) and
     PAIR_STEPS teacher-forced decode steps (the same next tokens for
     both), once with the plain prefill path and once with the kernels;
@@ -1240,8 +1377,9 @@ def bf16_pair(tag, arch, batch, prompt_len, kernel):
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
-    model = lm.from_reference(*lm.numpy_params(cfg, seed=0), cfg,
-                              device=dev)
+    model = (lm.from_reference(*lm.numpy_params(cfg, seed=0), cfg,
+                               device=dev) if numpy_weights
+             else lm.init_model(cfg, seed=0, device=dev))
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt_len + PAIR_STEPS)), device=dev)
     runs = {}
@@ -1275,6 +1413,132 @@ def bf16_pair(tag, arch, batch, prompt_len, kernel):
     if max(errs) > BF16_LOGIT_ATOL or not finite:
         fail(f"[{tag}] the bf16 logits through {kernel} differ from the "
              f"plain path's")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def sdpa_any(q, k, v):
+    """`sdpa` where some backend of this install takes the shape: (its
+    device ms over 10 calls, None), else (None, the error it raised) (a
+    yardstick only; the port never calls it)."""
+    import torch
+
+    try:
+        sdpa(q, k, v)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return cuda_ms(lambda: sdpa(q, k, v), 10), None
+
+
+def attention_shape_record(tag, shape, dtype, dev, what):
+    """K5 at `shape` (causal, q_offset 0) in `dtype` against its plain
+    version at the dtype's bar, then its time beside the plain
+    version's, SDPA's (`sdpa_any`) and the bound, with the bf16 TFLOP/s
+    and the bound share; max |o| and max |Δo| printed (ROADMAP C8).
+    Returns the record for the kernels line's `shapes`."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    q, k, v = flash_inputs(shape, dtype, shape[3] + shape[5], dev)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q, k, v, force="ref")
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    omax = float(want.float().abs().max())
+    bar = 2e-6 if dtype == torch.float32 else 2e-2
+    if err > bar or got.dtype != dtype or not bool(torch.isfinite(got).all()):
+        fail(f"[{tag}] K5 disagrees with flash_attention_ref at {shape} "
+             f"{dtype}: max abs error {err:.3e} (bar {bar})")
+    bnd, by, pairs = attention_bound_ms(shape, q.element_size())
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 10)
+    plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"), 3)
+    lib, lib_err = sdpa_any(q, k, v)
+    _, _, _, _, _, D, Dv, _ = attention_widths(shape)
+    flop = 2 * (D + Dv) * pairs
+    print(f"[{tag}] K5 at {what} {shape} {str(dtype)[6:]}: max abs error "
+          f"{err:.3e} (bar {bar}), max |o| {omax:.4f}; kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, SDPA "
+          + (f"{lib:.4f} ms" if lib is not None else f"null ({lib_err})")
+          + f", bound {bnd:.4f} ms ({by}; {pairs} unmasked pairs); "
+          f"{flop / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.1%} of the bound; "
+          f"{smi()}")
+    del q, k, v, got, want
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib, "max_abs_err": err, "max_abs_o": omax}
+
+
+def moe_kernels_phase(tag):
+    """Phase 26: K5 at MLA's widths (192, 128) against
+    `flash_attention_ref` on `MLA_CASES`, f32 and bf16, causal and not
+    (atol 2e-6 f32, 2e-2 bf16), then at DeepSeek-V2's prefill shape
+    `MLA_SERVE` (causal) with its times (`attention_shape_record`); K5
+    at Qwen3-MoE's and Jamba's GQA prefill shapes (`GQA_SERVE`), f32
+    and bf16; K4 at Jamba's N = 16 shape `SSD_JAMBA` against
+    `ssd_chunked_ref` at phase 10's bar, f32 and bf16, with its time
+    beside the plain version's and the bound. Returns ({"flash_attention":
+    records, "ssd_scan": records} for the kernels line's `shapes`)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    for shape in MLA_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = flash_inputs(shape, dtype, shape[3] + shape[5],
+                                       dev)
+                off = shape[-1]
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          q_offset=off)
+                want = ops.flash_attention(q, k, v, causal=causal,
+                                           q_offset=off, force="ref")
+                torch.cuda.synchronize()
+                e = float((got.float() - want.float()).abs().max())
+                bar = 2e-6 if dtype == torch.float32 else 2e-2
+                print(f"[{tag}] K5 {shape} {str(dtype)[6:]} causal={causal}:"
+                      f" max abs error {e:.3e} (bar {bar}), max |o| "
+                      f"{float(want.float().abs().max()):.4f}")
+                if e > bar or got.shape != want.shape or not bool(
+                        torch.isfinite(got).all()):
+                    fail(f"[{tag}] K5 disagrees with flash_attention_ref at "
+                         f"{shape} {dtype} causal={causal}")
+    records = {"flash_attention": [], "ssd_scan": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        records["flash_attention"].append(attention_shape_record(
+            tag, MLA_SERVE, dtype, dev, "DeepSeek-V2's MLA prefill shape"))
+    for arch, shape in GQA_SERVE.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            records["flash_attention"].append(attention_shape_record(
+                tag, shape, dtype, dev, f"{arch}'s prefill shape"))
+    lc = SSD_JAMBA[-1]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ssd_inputs(SSD_JAMBA, dtype, 16, dev)
+        y, st = ops.ssd_scan(*args, lc=lc)
+        y_ref, st_ref = ops.ssd_scan(*args, lc=lc, force="ref")
+        torch.cuda.synchronize()
+        ymax = float(y_ref.float().abs().max())
+        ok_y, err_y = ssd_err(y, y_ref, 5e-4 * ymax)
+        ok_s, err_s = ssd_err(st, st_ref, 5e-4)
+        if not (ok_y and ok_s) or y.dtype != dtype:
+            fail(f"[{tag}] K4 disagrees with ssd_chunked_ref at {SSD_JAMBA} "
+                 f"{dtype}: y {err_y:.3e}, state {err_s:.3e}")
+        ms = cuda_ms(lambda: ops.ssd_scan(*args, lc=lc), 20)
+        plain = cuda_ms(lambda: ops.ssd_scan(*args, lc=lc, force="ref"), 5)
+        bnd, by = ssd_bound_ms(SSD_JAMBA, args[0].element_size())
+        print(f"[{tag}] K4 at Jamba's shape {SSD_JAMBA} {str(dtype)[6:]}: "
+              f"max abs error y {err_y:.3e} (max|y| {ymax:.3f}), state "
+              f"{err_s:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by}); library: null; {smi()}")
+        records["ssd_scan"].append({
+            "shape": list(SSD_JAMBA), "dtype": str(dtype)[6:], "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "max_abs_err": max(err_y, err_s)})
+        del args, y, y_ref
+    torch.cuda.empty_cache()
+    return records
 
 
 class PoolStream:
@@ -3087,14 +3351,13 @@ def main():
     lap("10")
 
     # ---- 11. Mamba2 full-width parity with the JAX package -------------
-    golden_parity("11", SERVE_ARCH, MAMBA_GOLDEN, "ssd_scan",
-                  {"ssd_state_norm": "ssd"})
+    golden_parity("11", SERVE_ARCH, MAMBA_GOLDEN, {"ssd_state_norm": "ssd"})
 
     lap("11")
 
     # ---- 12. the serve main path: Mamba2-1.3B, 48 layers, bf16 ---------
     scounts = serve_main_path("12", SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT,
-                              SERVE_TOKENS, "ssd_scan")
+                              SERVE_TOKENS)
 
     lap("12")
 
@@ -3145,14 +3408,14 @@ def main():
     lap("13")
 
     # ---- 14. StarCoder2 full-width parity with the JAX package ---------
-    golden_parity("14", ATTN_ARCH, ATTN_GOLDEN, "flash_attention",
+    golden_parity("14", ATTN_ARCH, ATTN_GOLDEN,
                   {"k_cache_norm": "k", "v_cache_norm": "v"})
 
     lap("14")
 
     # ---- 15. the serve main path: StarCoder2-3B, 30 layers, bf16 -------
     acounts = serve_main_path("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT,
-                              ATTN_TOKENS, "flash_attention")
+                              ATTN_TOKENS)
     bf16_pair("15", ATTN_ARCH, ATTN_BATCH, ATTN_PROMPT, "flash_attention")
 
     lap("15")
@@ -3214,12 +3477,35 @@ def main():
     err = {k: max(err[k], anerr[k]) for k in err}
     lap("25")
 
+    # ---- 26. K5 at MLA's widths, K5 and K4 at the new models' shapes ----
+    moe_shapes = moe_kernels_phase("26")
+    lap("26")
+
+    # ---- 27. MoE, MLA and hybrid full-width parity with the JAX package -
+    for arch, (name, norms) in MOE_GOLDENS.items():
+        golden_parity("27", arch, ROOT / "tests" / "data" / name, norms)
+    lap("27")
+
+    # ---- 28. the MoE, MLA and hybrid serve main paths -------------------
+    moe_counts = {}
+    for arch in MOE_ARCHS:
+        layers, f32_layers = MOE_SERVE_LAYERS[arch]
+        moe_counts[arch] = serve_main_path(
+            "28", arch, MOE_BATCH, MOE_PROMPT, MOE_TOKENS, layers=layers,
+            f32_layers=f32_layers)
+    bf16_pair("28", "deepseek-v2-236b", MOE_BATCH, MOE_PROMPT,
+              "flash_attention", numpy_weights=False)
+    lap("28")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
              "learned_bigswitch": ecounts, "learned_leafspine": elcounts,
              "server": svcounts, "host_plane": hcounts,
-             "figures": fcounts, "bridge": bcounts, "analysis": ancounts}
+             "figures": fcounts, "bridge": bcounts, "analysis": ancounts,
+             "qwen3_moe": moe_counts["qwen3-moe-235b-a22b"],
+             "deepseek_v2": moe_counts["deepseek-v2-236b"],
+             "jamba": moe_counts["jamba-v0.1-52b"]}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
@@ -3255,7 +3541,8 @@ def main():
          "ms": k4[torch.bfloat16]["ms"],
          "plain_ms": k4[torch.bfloat16]["plain"],
          "bound_ms": k4[torch.bfloat16]["bound"][0],
-         "bound_by": k4[torch.bfloat16]["bound"][1], "library_ms": None},
+         "bound_by": k4[torch.bfloat16]["bound"][1], "library_ms": None,
+         "shapes": moe_shapes["ssd_scan"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:77",
@@ -3266,7 +3553,8 @@ def main():
          "plain_ms": k5[torch.bfloat16]["plain"],
          "bound_ms": k5[torch.bfloat16]["bound"],
          "bound_by": k5[torch.bfloat16]["by"],
-         "library_ms": k5[torch.bfloat16]["sdpa"]},
+         "library_ms": k5[torch.bfloat16]["sdpa"],
+         "shapes": moe_shapes["flash_attention"]},
         {**k6, "launches": total["prefix_sum"],
          "launches_by_path": by_path["prefix_sum"],
          "rows": total["prefix_sum_rows"],

@@ -136,6 +136,9 @@ class ModelConfig:
 ARCH_IDS = {
     "mamba2-1.3b": "mamba2_1p3b",
     "starcoder2-3b": "starcoder2_3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "jamba-v0.1-52b": "jamba_52b",
 }
 
 # the reference's other --arch ids -> (config module, the ROADMAP queue A
@@ -147,9 +150,6 @@ NOT_PORTED = {
     "deepseek-7b": ("deepseek_7b", _DENSE),
     "chameleon-34b": ("chameleon_34b", _DENSE),
     "seamless-m4t-medium": ("seamless_m4t_medium", _DENSE),
-    "qwen3-moe-235b-a22b": ("qwen3_moe_235b", "11c (MoE)"),
-    "deepseek-v2-236b": ("deepseek_v2_236b", "11c (MoE)"),
-    "jamba-v0.1-52b": ("jamba_52b", "11d (the Mamba/attention hybrid)"),
 }
 
 

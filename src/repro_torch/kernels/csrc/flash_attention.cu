@@ -12,11 +12,15 @@
 //     m = running max, l = running sum of exp(s - m), acc = running
 //     sum of exp(s - m) v; o_i = acc / max(l, 1e-30) in q's type.
 //
-// Inputs q (B, H, S, D), k and v (B, Hkv, T, D) and the output o
-// (B, H, S, D), each given by its (batch, head, row) strides with the
-// D axis contiguous, so (B, S, H, D) tensors and slices of a longer KV
-// cache pass as views without a copy; f32 or bf16 (all four of one
-// type); D in {16, 32, 64, 128}. Two designs, one for each type.
+// Inputs q (B, H, S, D), k (B, Hkv, T, D) and v (B, Hkv, T, DV) and the
+// output o (B, H, S, DV), each given by its (batch, head, row) strides
+// with the last axis contiguous, so (B, S, H, D) tensors and slices of a
+// longer KV cache pass as views without a copy; f32 or bf16 (all four of
+// one type); (D, DV) one of (16, 16), (32, 32), (64, 64), (128, 128) and
+// (192, 128), MLA's prefill (repro/models/attention.py:268: q.k over 128
+// columns without RoPE and 64 with, values 128 wide; the scale D^-1/2 is
+// jnp_flash's, so MLA's folded factor is 1). Two designs, one for each
+// type; each takes the pairs as template parameters.
 //
 // Bound on this card: at the serve shape (B 4, H 24, Hkv 2, S = T =
 // 2000, D 128, causal) the function needs 2 D multiply-adds for each of
@@ -24,7 +28,10 @@
 // rate of 67 TFLOP/s, 0.099 ms at the bf16 tensor-core rate of 989; its
 // bytes (q and o once, k and v once per KV head, 106 MB in bf16) take
 // 0.032 ms at 3.35 TB/s. Its exps (one a pair) run on the SFUs at 16 a
-// clock an SM (~4.2 T/s): 0.046 ms, half of the bf16 product time.
+// clock an SM (~4.2 T/s): 0.046 ms, half of the bf16 product time. At
+// DeepSeek-V2's MLA prefill (B 4, H = Hkv = 128, S = T = 1000, (192,
+// 128)) it needs (192 + 128) multiply-adds for each of 256 M pairs, 164
+// GFLOP: 0.166 ms in bf16, 2.45 ms in f32; its bytes 0.098 ms.
 //
 // f32 (flash_fwd<float, D>, the port's first design; the 2e-6 bar rules
 // out TF32, so the products stay on the CUDA cores): one block of 256
@@ -39,8 +46,8 @@
 // half-warp, and keeps the rows' m, l and a (4, D / 16) slice of acc in
 // registers; the probabilities go back to shared memory (over the key
 // tile) for acc += P V. 101.6 KB of shared memory at D = 128, two
-// blocks an SM. Bound by its f32 multiply-adds and the shared-memory
-// reads that feed them.
+// blocks an SM; 137.2 KB at (192, 128), one. Bound by its f32
+// multiply-adds and the shared-memory reads that feed them.
 //
 // bf16 (hopper::flash_fwd_sm90<D>; the 2e-2 bar admits bf16 products
 // with f32 sums): both products run on the tensor cores (wgmma), which
@@ -62,10 +69,12 @@
 //     mbarrier (expect-tx bytes) and an "empty" one (one arrival per
 //     consumer warp). TMA needs a 16-byte-aligned base and strides
 //     that are multiples of 16 bytes; the wrapper raises on any other
-//     view. 160 KB of shared memory at D = 128, one block an SM.
+//     view. 160 KB of shared memory at D = 128, one block an SM; at
+//     (192, 128) Q and K tiles take 3 column blocks (48 KB) and V tiles
+//     2 (32 KB): 208 KB.
 //   - S = Q K^T: wgmma m64n128k16, both operands K-major in shared
 //     memory, D / 16 k-steps (32 bytes along a swizzled row, then the
-//     next column block).
+//     next column block): 12 at D = 192.
 //   - Online softmax on the f32 accumulator fragment, in registers: the
 //     row max over the 4 threads of a row (2 shuffles), D^-1/2 log2 e
 //     folded into one multiply-add before ex2, l summed per thread from
@@ -73,7 +82,7 @@
 //     that cross T or the causal limit are masked, and the key loop
 //     stops at the causal limit of the block's last row.
 //   - O += P V: P rounded to bf16 in registers is the A operand of
-//     wgmma m64n{D}k16 (the accumulator fragment is the A fragment's
+//     wgmma m64n{DV}k16 (the accumulator fragment is the A fragment's
 //     layout), so it never touches shared memory; V is the B operand,
 //     MN-major (transposed), its column blocks one leading offset apart.
 //   - Overlap, both ways: within a consumer, S_j = Q K_j^T and O +=
@@ -113,16 +122,16 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 }
 
 // floats of shared memory: Qt (D x QT), the key tile Kt (D x KT) shared
-// with the probabilities Pt (BK x QT), the value tile V (BK x D)
+// with the probabilities Pt (BK x QT), the value tile V (BK x DV)
 __host__ __device__ constexpr size_t kp_floats(int D) {
   return (size_t)D * KT > (size_t)BK * QT ? (size_t)D * KT
                                           : (size_t)BK * QT;
 }
-__host__ __device__ constexpr size_t smem_floats(int D) {
-  return (size_t)D * QT + kp_floats(D) + (size_t)BK * D;
+__host__ __device__ constexpr size_t smem_floats(int D, int DV) {
+  return (size_t)D * QT + kp_floats(D) + (size_t)BK * DV;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int H, int G, int S,
@@ -132,13 +141,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long oss, float scale, int causal, int q_offset) {
   // o columns of thread tx: NJ groups of VEC, group g at
   // g * 16 VEC + tx VEC (a quarter-warp's float4 reads hit 32 banks)
-  constexpr int VEC = D >= 64 ? 4 : D / 16;
-  constexpr int NJ = D / (16 * VEC);
+  constexpr int VEC = DV >= 64 ? 4 : DV / 16;
+  constexpr int NJ = DV / (16 * VEC);
   extern __shared__ float smem[];
   float* Qt = smem;                  // D x QT
   float* Kt = Qt + D * QT;           // D x KT, then Pt: BK x QT
   float* Pt = Kt;
-  float* Vs = Kt + kp_floats(D);     // BK x D
+  float* Vs = Kt + kp_floats(D);     // BK x DV
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -169,9 +178,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // Qt written; the last tile's Pt and V read
     for (int i = tid; i < BK * D; i += THREADS) {
       const int c = i / D, d = i % D, t = k0 + c;
-      const bool ok = t < Tk;
-      Kt[d * KT + c] = ok ? to_f(kb[t * kss + d]) : 0.f;
-      Vs[c * D + d] = ok ? to_f(vb[t * vss + d]) : 0.f;
+      Kt[d * KT + c] = t < Tk ? to_f(kb[t * kss + d]) : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += THREADS) {
+      const int c = i / DV, d = i % DV, t = k0 + c;
+      Vs[c * DV + d] = t < Tk ? to_f(vb[t * vss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -236,7 +247,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int g = 0; g < NJ; ++g) {
-        const float* vr = Vs + c * D + g * 16 * VEC + tx * VEC;
+        const float* vr = Vs + c * DV + g * 16 * VEC + tx * VEC;
         float va[VEC];
         if constexpr (VEC == 4) {
           const float4 t4 = *reinterpret_cast<const float4*>(vr);
@@ -268,17 +279,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int Tk, const long long* st, float scale,
            int causal, int q_offset, cudaStream_t stream) {
-  const size_t bytes = smem_floats(D) * sizeof(float);
+  const size_t bytes = smem_floats(D, DV) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd<T, D, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, S, Tk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
@@ -286,23 +297,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// the (D, DV) pairs of both instances, as one key
+constexpr int widths(int D, int DV) { return D * 1024 + DV; }
+
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int Tk, int D, const long long* st,
-             float scale, int causal, int q_offset, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                           q_offset, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                           q_offset, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                           q_offset, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                            q_offset, stream);
+             int H, int Hkv, int S, int Tk, int D, int DV,
+             const long long* st, float scale, int causal, int q_offset,
+             cudaStream_t stream) {
+  switch (widths(D, DV)) {
+    case widths(16, 16):
+      return launch<T, 16, 16>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                               causal, q_offset, stream);
+    case widths(32, 32):
+      return launch<T, 32, 32>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                               causal, q_offset, stream);
+    case widths(64, 64):
+      return launch<T, 64, 64>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                               causal, q_offset, stream);
+    case widths(128, 128):
+      return launch<T, 128, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                                 causal, q_offset, stream);
+    case widths(192, 128):
+      return launch<T, 192, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                                 causal, q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -320,9 +338,9 @@ constexpr int STAGES = 2;        // K and V tiles in flight, each
 constexpr int THREADS = 384;     // a producer and two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 
-// shared-memory geometry at head size D: a tile of 128 rows is stored as
-// NB column blocks of INNER columns (one TMA box each), rows of ROWB
-// bytes, swizzled over ROWB (the widest swizzle a box can take)
+// shared-memory geometry of a tile of 128 rows of width D: NB column
+// blocks of INNER columns (one TMA box each), rows of ROWB bytes,
+// swizzled over ROWB (the widest swizzle a box can take)
 template <int D>
 struct Geo {
   static constexpr int INNER = D < 64 ? D : 64;
@@ -331,9 +349,17 @@ struct Geo {
   static constexpr int BLOCK = 128 * ROWB;              // bytes a column block
   static constexpr int TILE = NB * BLOCK;               // bytes a tile
   static constexpr uint32_t SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
-  // Q, then the K ring, then the V ring; 9 barriers after them
-  static constexpr int BAR_OFF = (1 + 2 * STAGES) * TILE;
-  static constexpr size_t SMEM = 1024 + BAR_OFF + 9 * 8;  // + alignment slack
+};
+
+// the block's shared memory at q.k width D and value width DV: Q, then
+// the K ring, then the V ring; 9 barriers after them. 160 KB at (128,
+// 128), 208 KB at (192, 128)
+template <int D, int DV>
+struct Smem {
+  static constexpr int SK = Geo<D>::TILE;                     // the K ring
+  static constexpr int SV = (1 + STAGES) * Geo<D>::TILE;      // the V ring
+  static constexpr int BAR_OFF = SV + STAGES * Geo<DV>::TILE;
+  static constexpr size_t BYTES = 1024 + BAR_OFF + 9 * 8;  // + alignment slack
 };
 
 // S = Q K^T for one consumer's 64 rows: D / 16 k-steps, both operands
@@ -364,7 +390,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[8][4],
                 1);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -372,12 +398,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ o, long long osb, long long osh,
                long long oss, int B, int H, int G, int S, int Tk,
                int q_tiles, float scale_log2, int causal, int q_offset) {
-  using Geo_ = Geo<D>;
+  using Geo_ = Geo<D>;      // Q and K tiles
+  using GeoV = Geo<DV>;     // V tiles
+  using Sm = Smem<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQ = base, sK = base + Geo_::TILE,
-                 sV = base + (1 + STAGES) * Geo_::TILE;
-  const uint32_t bar_q = base + Geo_::BAR_OFF;
+  const uint32_t sQ = base, sK = base + Sm::SK, sV = base + Sm::SV;
+  const uint32_t bar_q = base + Sm::BAR_OFF;
   const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * STAGES,
                  empty_k = full_v + 8 * STAGES,
                  empty_v = empty_k + 8 * STAGES;
@@ -421,10 +448,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
           tma_load_4d(sK + s * Geo_::TILE + c * Geo_::BLOCK, &tk,
                       full_k + 8 * s, c * Geo_::INNER, j * BK, hk, b);
         if (j >= STAGES) mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, Geo_::TILE);
-        for (int c = 0; c < Geo_::NB; ++c)
-          tma_load_4d(sV + s * Geo_::TILE + c * Geo_::BLOCK, &tv,
-                      full_v + 8 * s, c * Geo_::INNER, j * BK, hk, b);
+        mbar_expect_tx(full_v + 8 * s, GeoV::TILE);
+        for (int c = 0; c < GeoV::NB; ++c)
+          tma_load_4d(sV + s * GeoV::TILE + c * GeoV::BLOCK, &tv,
+                      full_v + 8 * s, c * GeoV::INNER, j * BK, hk, b);
       }
     }
   } else {
@@ -437,9 +464,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     const uint32_t sq = sQ + 64 * cw * Geo_::ROWB;
     const bool leader = lane == 0;            // arrives for its warp
 
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float s[64];
 #pragma unroll
@@ -521,7 +548,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         qk<D>(s, sq, sK + st * Geo_::TILE);
         wgmma_commit();
         mbar_wait(full_v + 8 * sp, ((j - 1) / STAGES) & 1);
-        pv<D>(acc, p, sV + sp * Geo_::TILE);
+        pv<DV>(acc, p, sV + sp * GeoV::TILE);
         wgmma_commit();
         turn_pass();
         wgmma_wait<1>();
@@ -532,7 +559,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         fence_operand(acc);
         if (leader) mbar_arrive(empty_v + 8 * sp);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
         to_p();
       }
       const int sp = (n - 1) % STAGES;
@@ -540,7 +567,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       fence_operand(acc);
       turn_wait();
       wgmma_fence();
-      pv<D>(acc, p, sV + sp * Geo_::TILE);
+      pv<DV>(acc, p, sV + sp * GeoV::TILE);
       wgmma_commit();
       if (cw == 0) turn_pass();   // consumer 0 takes no turn after this
       wgmma_wait<0>();
@@ -556,7 +583,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DV / 2; i += 2) {
       const int r = (i / 2) % 2, row = row0 + 8 * r;
       if (row < S)
         *reinterpret_cast<__nv_bfloat162*>(
@@ -612,22 +639,22 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int Tk, const long long* st, float scale,
            int causal, int q_offset, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!tensor_map<D>(&mq, q, S, H, B, st[2], st[1], st[0]) ||
       !tensor_map<D>(&mk, k, Tk, Hkv, B, st[5], st[4], st[3]) ||
-      !tensor_map<D>(&mv, v, Tk, Hkv, B, st[8], st[7], st[6]))
+      !tensor_map<DV>(&mv, v, Tk, Hkv, B, st[8], st[7], st[6]))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = Geo<D>::SMEM;
+  const size_t bytes = Smem<D, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_sm90<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const int q_tiles = (S + BQ - 1) / BQ;
-  flash_fwd_sm90<D><<<q_tiles * H * B, THREADS, bytes, stream>>>(
+  flash_fwd_sm90<D, DV><<<q_tiles * H * B, THREADS, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[9], st[10], st[11], B,
       H, H / Hkv, S, Tk, q_tiles, scale * 1.4426950408889634f, causal,
       q_offset);
@@ -635,21 +662,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int Tk, int D, const long long* st,
-             float scale, int causal, int q_offset, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                        q_offset, stream);
-    case 32:
-      return launch<32>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                        q_offset, stream);
-    case 64:
-      return launch<64>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                        q_offset, stream);
-    case 128:
-      return launch<128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
-                         q_offset, stream);
+             int H, int Hkv, int S, int Tk, int D, int DV,
+             const long long* st, float scale, int causal, int q_offset,
+             cudaStream_t stream) {
+  switch (widths(D, DV)) {
+    case widths(16, 16):
+      return launch<16, 16>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                            q_offset, stream);
+    case widths(32, 32):
+      return launch<32, 32>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                            q_offset, stream);
+    case widths(64, 64):
+      return launch<64, 64>(q, k, v, o, B, H, Hkv, S, Tk, st, scale, causal,
+                            q_offset, stream);
+    case widths(128, 128):
+      return launch<128, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                              causal, q_offset, stream);
+    case widths(192, 128):
+      return launch<192, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                              causal, q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -659,21 +690,22 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+// D: the q.k width (of q and k), Dv: the value width (of v and o).
 // strides: the (batch, head, row) strides of q, k, v and o, in elements,
-// in that order (12 values); the D axis is contiguous. bf16 != 0: q, k,
-// v and o are bf16, else f32. Returns the CUDA error code of the launch
-// (0 = none; cudaErrorInvalidValue for a D the kernel is not built for
-// or a bf16 tensor that TMA cannot map).
+// in that order (12 values); the last axis is contiguous. bf16 != 0: q,
+// k, v and o are bf16, else f32. Returns the CUDA error code of the
+// launch (0 = none; cudaErrorInvalidValue for a (D, Dv) the kernel is
+// not built for or a bf16 tensor that TMA cannot map).
 extern "C" int saath_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
-                                     int Hkv, int S, int Tk, int D,
+                                     int Hkv, int S, int Tk, int D, int Dv,
                                      const long long* strides, float scale,
                                      int causal, int q_offset, int bf16,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return hopper::launch_d(q, k, v, o, B, H, Hkv, S, Tk, D, strides, scale,
-                            causal, q_offset, s);
-  return launch_d<float>(q, k, v, o, B, H, Hkv, S, Tk, D, strides, scale,
+    return hopper::launch_d(q, k, v, o, B, H, Hkv, S, Tk, D, Dv, strides,
+                            scale, causal, q_offset, s);
+  return launch_d<float>(q, k, v, o, B, H, Hkv, S, Tk, D, Dv, strides, scale,
                          causal, q_offset, s);
 }

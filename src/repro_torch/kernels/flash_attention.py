@@ -4,7 +4,9 @@
 Replaces the Pallas kernel `repro/kernels/flash_attention.py:
 flash_attention_pallas`, the fast path of the online-softmax attention
 that the prefill of every attention layer runs
-(`repro/models/attention.py:181`, `jnp_flash`). A block takes one
+(`repro/models/attention.py:181`, `jnp_flash`), MLA's among them, whose
+q.k width (192: 128 without RoPE, 64 with) differs from its value width
+(128). It is built for the (D, Dv) pairs of `WIDTHS`. A block takes one
 (batch, head, tile of query rows) and loops over the key tiles up to
 its causal limit with the rows' running max, sum and accumulator in
 registers. Two designs, by dtype (the head note of
@@ -37,7 +39,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)   # the head sizes the kernel is built for
+# the (q.k width D, value width Dv) pairs the kernel is built for
+WIDTHS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 launches = 0
 _lib = None
 
@@ -47,7 +50,7 @@ def _library():
     if _lib is None:
         lib = build.load("flash_attention")
         lib.saath_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.saath_flash_attention.restype = ctypes.c_int
@@ -89,18 +92,28 @@ def _tma_strides(t: torch.Tensor, name: str):
     return out
 
 
+def _like(q: torch.Tensor, width: int) -> torch.Tensor:
+    """An empty (B, H, S, width) tensor whose (batch, head, row) axes
+    are laid out in the order of q's strides, width contiguous (so that
+    a transposed (B, S, H, D) q gives an o whose transpose back is
+    contiguous)."""
+    order = sorted(range(3), key=lambda a: -q.stride(a))
+    o = q.new_empty([q.shape[a] for a in order] + [width])
+    return o.permute(*[order.index(a) for a in range(3)], 3)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          q_offset: int = 0) -> torch.Tensor:
-    """Forward GQA attention on one CUDA device: q (B, H, S, D), k and v
-    (B, Hkv, T, D), all f32 or all bf16, each with its D axis contiguous
-    (strided views such as `x.transpose(1, 2)` of a (B, S, H, D) tensor
-    are read in place); H a multiple of Hkv, D in `HEAD_DIMS`,
-    q_offset >= 0. Returns o (B, H, S, D) in q's dtype, laid out like q
-    (so `o.transpose(1, 2)` of a transposed q is contiguous), the
-    contract of `ref.flash_attention_ref`. In bf16 the inputs must meet
-    TMA's alignment rule (see the module note) or it raises
-    ValueError."""
+    """Forward GQA attention on one CUDA device: q (B, H, S, D), k
+    (B, Hkv, T, D) and v (B, Hkv, T, Dv), all f32 or all bf16, each with
+    its last axis contiguous (strided views such as `x.transpose(1, 2)`
+    of a (B, S, H, D) tensor are read in place); H a multiple of Hkv,
+    (D, Dv) in `WIDTHS`, q_offset >= 0. Returns o (B, H, S, Dv) in q's
+    dtype, laid out like q (so `o.transpose(1, 2)` of a transposed q is
+    contiguous), the contract of `ref.flash_attention_ref`; the scores
+    are scaled by D^-1/2. In bf16 the inputs must meet TMA's alignment
+    rule (see the module note) or it raises ValueError."""
     global launches
     if q.dim() != 4 or not q.is_cuda:
         raise ValueError("flash_attention_cuda needs q as a (B, H, S, D) "
@@ -112,17 +125,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dim() != 4:
         raise ValueError("k and v must be (B, Hkv, T, D)")
     Hkv, T = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS or Hkv == 0 or H % Hkv or q_offset < 0:
-        raise ValueError(f"flash_attention_cuda: D = {D} must be one of "
-                         f"{HEAD_DIMS}, H = {H} a multiple of Hkv = {Hkv}, "
-                         f"q_offset = {q_offset} >= 0")
-    for t, name, shape in ((k, "k", (B, Hkv, T, D)), (v, "v", (B, Hkv, T, D))):
+    Dv = v.shape[3] if v.dim() == 4 else -1
+    if (D, Dv) not in WIDTHS or Hkv == 0 or H % Hkv or q_offset < 0:
+        raise ValueError(f"flash_attention_cuda: (D = {D}, Dv = {Dv}) must "
+                         f"be one of {WIDTHS}, H = {H} a multiple of Hkv = "
+                         f"{Hkv}, q_offset = {q_offset} >= 0")
+    for t, name, shape in ((k, "k", (B, Hkv, T, D)),
+                           (v, "v", (B, Hkv, T, Dv))):
         if tuple(t.shape) != shape or t.dtype != q.dtype \
                 or t.device != q.device:
             raise ValueError(f"{name}: expected {q.dtype} {shape} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    o = torch.empty_like(q)
+    o = _like(q, Dv)
     if o.numel() == 0:
         return o
     loaded = _tma_strides if q.dtype == torch.bfloat16 else _bhs_strides
@@ -134,11 +149,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.saath_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-            Hkv, S, T, D, strides, 1.0 / (D ** 0.5), int(causal), q_offset,
-            int(q.dtype == torch.bfloat16), stream)
+            Hkv, S, T, D, Dv, strides, 1.0 / (D ** 0.5), int(causal),
+            q_offset, int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed at (B, H, Hkv, "
-                           f"S, T, D) = {(B, H, Hkv, S, T, D)}: CUDA error "
+                           f"S, T, D, Dv) = {(B, H, Hkv, S, T, D, Dv)}: CUDA "
+                           f"error "
                            f"{err} (a shared-memory request above the "
                            f"block's limit, or a tensor map the CUDA driver "
                            f"refused, is error 1)")
@@ -146,4 +162,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["WIDTHS", "flash_attention_cuda"]

@@ -115,11 +115,12 @@ def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
 @_boundary("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     force: Optional[str] = None):
-    """Forward GQA attention: q (B, H, S, D), k and v (B, Hkv, T, D) ->
-    o (B, H, S, D) in q's dtype; the causal mask is aligned top-left,
-    query i at absolute position q_offset + i (>= 0). See
-    `ref.flash_attention_ref` for the contract; on CUDA the kernel K5
-    reads strided views in place and lays o out like q."""
+    """Forward GQA attention: q (B, H, S, D), k (B, Hkv, T, D) and v
+    (B, Hkv, T, Dv) -> o (B, H, S, Dv) in q's dtype; the causal mask is
+    aligned top-left, query i at absolute position q_offset + i (>= 0).
+    See `ref.flash_attention_ref` for the contract; on CUDA the kernel
+    K5 (built for the (D, Dv) pairs of `flash_attention.WIDTHS`) reads
+    strided views in place and lays o out like q."""
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, not {q_offset}")
     if _use_kernel(q, force):

@@ -374,14 +374,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
                         block: int = 1024) -> torch.Tensor:
     """Forward GQA attention by online softmax over key blocks of
-    `block`: q (B, H, S, D), k and v (B, Hkv, T, D), H a multiple of
-    Hkv, query head h reading KV head h // (H // Hkv) (K and V are never
-    repeated). In f32: s = q k^T D^-1/2; keys at or past T and, under
-    `causal`, keys after q_offset + i (query i's absolute position) are
-    set to -1e30; the running max m, sum l and accumulator; o = acc /
-    max(l, 1e-30). Returns (B, H, S, D) in q's dtype."""
+    `block`: q (B, H, S, D), k (B, Hkv, T, D) and v (B, Hkv, T, Dv) (Dv
+    may differ from D, as in MLA's prefill: 192 against 128), H a
+    multiple of Hkv, query head h reading KV head h // (H // Hkv) (K and
+    V are never repeated). In f32: s = q k^T D^-1/2 (the q.k width);
+    keys at or past T and, under `causal`, keys after q_offset + i
+    (query i's absolute position) are set to -1e30; the running max m,
+    sum l and accumulator (Dv wide); o = acc / max(l, 1e-30). Returns
+    (B, H, S, Dv) in q's dtype."""
     B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     f32 = torch.float32
     scale = 1.0 / (D ** 0.5)
     qg = q.reshape(B, Hkv, H // Hkv, S, D).to(f32)
@@ -389,7 +391,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((B, Hkv, H // Hkv, S), NEG_INF, dtype=f32,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros(B, Hkv, H // Hkv, S, D, dtype=f32, device=q.device)
+    acc = torch.zeros(B, Hkv, H // Hkv, S, Dv, dtype=f32, device=q.device)
     for j in range(0, T, block):
         kb, vb = k[:, :, j:j + block].to(f32), v[:, :, j:j + block].to(f32)
         s = torch.einsum("bhgsd,bhtd->bhgst", qg, kb) * scale
@@ -404,7 +406,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     p, vb)
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
-    return o.reshape(B, H, S, D).to(q.dtype)
+    return o.reshape(B, H, S, Dv).to(q.dtype)
 
 
 PREFIX_BLOCK = 16   # XLA's scan block on the CPU (jnp.cumsum)

@@ -1,20 +1,29 @@
 """Serving driver of the port: batched prefill + greedy decode with a
-KV cache (attention layers) or the conv window and SSD state (Mamba
-layers) as the cache.
+KV cache (GQA layers), a latent cache (MLA layers) or the conv window
+and SSD state (Mamba layers) as the cache.
 
-The counterpart of `repro.launch.lm_serve`: a fixed batch of requests
-is prefilled at once (on the card the prefill of every Mamba layer runs
-the SSD scan kernel K4, of every attention layer the attention kernel
-K5), then greedy decode steps run until the asked number of tokens,
-position by position after the prompt. Tokens stay on the device until
-the end (the reference pulls each one to the host).
+The counterpart of `repro.launch.lm_serve` for the decoder-only
+architectures of `configs.ARCH_IDS` (Mamba2-1.3B, StarCoder2-3B,
+Qwen3-MoE-235B-A22B, DeepSeek-V2-236B, Jamba-v0.1-52B): a fixed batch of
+requests is prefilled at once (on the card the prefill of every Mamba
+layer runs the SSD scan kernel K4, of every GQA or MLA layer the
+attention kernel K5), then greedy decode steps run until the asked
+number of tokens, position by position after the prompt. Tokens stay on
+the device until the end (the reference pulls each one to the host).
 
 Usage (the smoke config, on the card; `--device cpu` runs the plain
 PyTorch path; `ServeSession(arch, smoke=False)` serves the published
-config):
+config, which for the three MoE models does not fit one card: serve a
+depth-cut model at full width with `ServeSession(arch,
+model=lm.init_model(dataclasses.replace(get_config(arch),
+num_layers=n), device="cuda"))`):
   python -m repro_torch.launch.lm_serve --arch starcoder2-3b --requests 4 \
       --tokens 16
   python -m repro_torch.launch.lm_serve --arch mamba2-1.3b
+  python -m repro_torch.launch.lm_serve --arch jamba-v0.1-52b
+DeepSeek-V2's SMOKE widths (MLA's q.k 24, values 16) have no instance of
+K5, which is built for the published (192, 128): its smoke config
+serves on the CPU only.
 """
 from __future__ import annotations
 

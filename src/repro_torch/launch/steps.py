@@ -2,7 +2,9 @@
 
 The counterpart of the serving part of `repro.launch.steps`
 (`materialize_model`, `make_prefill_step`, `make_decode_step`). There is
-no sharding and no `jit`: PyTorch runs the steps eagerly on one device.
+no sharding and no `jit`: PyTorch runs the steps eagerly on one device,
+for every decoder-only stack `models.lm` builds (Mamba, GQA and MLA
+mixers; dense, MoE or no FFN).
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ def materialize_model(cfg, seed: int = 0, device=None) -> lm.DecoderLM:
 def make_prefill_step(model: lm.DecoderLM, *, force: Optional[str] = None):
     """prefill_step(tokens (B, S), cache) -> (last-token logits
     (B, 1, V), cache). `force="ref"` runs the plain versions of the
-    prefill kernels (SSD scan, attention) on any device (for holding the
-    kernels against them)."""
+    prefill kernels (SSD scan, attention, GQA's and MLA's) on any device
+    (for holding the kernels against them)."""
     def prefill_step(tokens, cache):
         return lm.forward_prefill(model, tokens, cache, force=force)
     return prefill_step

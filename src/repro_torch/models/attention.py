@@ -1,7 +1,8 @@
-"""GQA attention mixer of the port (+RoPE, optional qk-norm).
+"""Attention mixers of the port: GQA (+RoPE, optional qk-norm) and
+DeepSeek-V2's MLA.
 
-The counterpart of the GQA block of `repro.models.attention`
-(`gqa_init`, `gqa_apply`, `decode_attend`). Layout: activations
+The counterpart of `repro.models.attention` (`gqa_init`, `gqa_apply`,
+`decode_attend`, `mla_init`, `mla_apply`). Layout: activations
 (B, S, d); q, k, v (B, S, H, Dh), query head h reading KV head
 h // (H // Hkv).
 
@@ -18,9 +19,16 @@ Unlike the reference, which returns a new cache, the cache is updated in
 place: a full-width StarCoder2-3B cache for 4 requests of 2064 tokens
 is 254 MB, and a copy per decode step would move all of it every token.
 
-Cache layout per layer: {"k", "v": (B, max_len, Hkv, Dh)} in the compute
-dtype. MLA (ROADMAP queue A item 11c) and cross attention (item 11f) are
-not ported.
+MLA (`MLAAttention`) caches the compressed latent instead: prefill
+decompresses K and V and runs the same kernel at a q.k width of
+head_dim + rope_head_dim (192) and a value width of head_dim (128);
+decode is the reference's absorbed form against the latent cache, plain
+tensor code.
+
+Cache layout per layer: {"k", "v": (B, max_len, Hkv, Dh)} for GQA,
+{"ckv": (B, max_len, kv_lora_rank), "krope": (B, max_len,
+rope_head_dim)} for MLA, in the compute dtype. Cross attention (ROADMAP
+queue A item 11f) is not ported.
 """
 from __future__ import annotations
 
@@ -119,4 +127,101 @@ class GQAAttention(nn.Module):
         return o.reshape(B, S, H * Dh) @ self.wo.flatten(0, 1), cache
 
 
-__all__ = ["GQAAttention", "decode_attend", "gqa_init"]
+def mla_init(init: ParamInit, cfg) -> dict:
+    """One layer's MLA weights in the reference's names and shapes
+    (without its leading layer axis): wq_a (d, r_q), wq_b (r_q, H,
+    dn + dr), wkv_a (d, r_kv + dr), wk_b and wv_b (r_kv, H, dn), wo
+    (H, dn, d) and the zero kv_norm (r_kv,), with dn = head_dim and
+    dr = rope_head_dim."""
+    d, H = cfg.d_model, cfg.num_heads
+    dn, dr = cfg.head_dim, cfg.rope_head_dim
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    return {"wq_a": init.dense((d, r_q), fan_in=d),
+            "wq_b": init.dense((r_q, H, dn + dr), fan_in=r_q),
+            "wkv_a": init.dense((d, r_kv + dr), fan_in=d),
+            "wk_b": init.dense((r_kv, H, dn), fan_in=r_kv),
+            "wv_b": init.dense((r_kv, H, dn), fan_in=r_kv),
+            "wo": init.dense((H, dn, d), fan_in=H * dn),
+            "kv_norm": init.zeros((r_kv,))}
+
+
+class MLAAttention(nn.Module):
+    """DeepSeek-V2's multi-head latent attention (`mla_apply`) over fixed
+    weights in the compute dtype; `weights` maps the names of `mla_init`
+    to tensors."""
+
+    def __init__(self, cfg, weights: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name, w in weights.items():
+            self.register_parameter(name, nn.Parameter(w,
+                                                       requires_grad=False))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[dict] = None, *,
+                kv_len: Optional[int] = None,
+                force: Optional[str] = None):
+        """x: (B, S, d); positions broadcastable to (B, S). Without
+        `kv_len` a prefill: the latent ckv and the rotated k_rope fill
+        cache rows [0, S) when `cache` is given; K (no-RoPE part
+        decompressed from ckv, k_rope broadcast over the heads) and V
+        (decompressed) go with q to `ops.flash_attention`, causal, at
+        widths (dn + dr, dn) (`force` pins its path). With `kv_len` (an
+        int) one decode step (S == 1) in the absorbed form against the
+        first kv_len + 1 cache rows. Returns (out (B, S, d), the cache,
+        updated in place, or None)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, dn, dr = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
+        r_kv = cfg.kv_lora_rank
+        q = ((x @ self.wq_a) @ self.wq_b.flatten(1)).view(B, S, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = rope(q_rope, positions, cfg.rope_theta)
+        kv_a = x @ self.wkv_a
+        ckv = rms_norm(kv_a[..., :r_kv], self.kv_norm)
+        k_rope = rope(kv_a[:, :, None, r_kv:], positions,
+                      cfg.rope_theta)[:, :, 0]
+
+        if kv_len is not None:
+            if cache is None or S != 1:
+                raise ValueError("a decode step takes one token and a "
+                                 "cache")
+            cache["ckv"][:, kv_len] = ckv[:, 0]
+            cache["krope"][:, kv_len] = k_rope[:, 0]
+            o = self._absorbed(q_nope, q_rope, cache["ckv"][:, :kv_len + 1],
+                               cache["krope"][:, :kv_len + 1], x.dtype)
+        else:
+            if cache is not None:
+                cache["ckv"][:, :S] = ckv
+                cache["krope"][:, :S] = k_rope
+            k_nope = (ckv @ self.wk_b.flatten(1)).view(B, S, H, dn)
+            v = (ckv @ self.wv_b.flatten(1)).view(B, S, H, dn)
+            k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)],
+                          dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            o = ops.flash_attention(qf.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=True,
+                                    force=force).transpose(1, 2)
+        return o.reshape(B, S, H * dn) @ self.wo.flatten(0, 1), cache
+
+    def _absorbed(self, q_nope, q_rope, ckv, krope, dtype):
+        """The reference's absorbed decode: q_nope folded through wk_b
+        into the latent (in the compute dtype), f32 scores against the
+        latent cache plus the RoPE part, scaled by (dn + dr)^-1/2; the
+        f32 softmax weights the latent, which wv_b (as f32) decompresses;
+        the output in `dtype`. q_*: (B, 1, H, .); ckv, krope: the cache
+        rows to attend. Returns (B, 1, H, dn)."""
+        f32 = torch.float32
+        scale = (self.cfg.head_dim + self.cfg.rope_head_dim) ** -0.5
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, self.wk_b)
+        s = torch.einsum("bshr,btr->bhst", q_abs.to(f32), ckv.to(f32))
+        s = s + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                             krope.to(f32))
+        p = torch.softmax(s * scale, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", p, ckv.to(f32))
+        return torch.einsum("bshr,rhk->bshk", o_lat,
+                            self.wv_b.to(f32)).to(dtype)
+
+
+__all__ = ["GQAAttention", "MLAAttention", "decode_attend", "gqa_init",
+           "mla_init"]

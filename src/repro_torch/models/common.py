@@ -1,9 +1,10 @@
 """Shared model machinery of the port: the reference's RMS norm, RoPE,
 activations, plain-MLP FFN and parameter initialiser.
 
-The counterpart of `repro.models.common` for the parts the Mamba2 and
-StarCoder2 serve paths run. Sharding rules and the gated FFN
-(`glu_ffn`) stay out until a slice needs them.
+The counterpart of `repro.models.common` for the parts the serve paths
+run: the plain MLP of StarCoder2 and the gated FFN (`glu_ffn`) of the
+SwiGLU models and of every MoE expert. Sharding rules stay out until a
+slice needs them.
 """
 from __future__ import annotations
 
@@ -72,6 +73,20 @@ def mlp_ffn(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     return activation(act)(x @ wi) @ wo
 
 
+def glu_ffn(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
+            wo: torch.Tensor, act: str) -> torch.Tensor:
+    """SwiGLU / GeGLU: act(x W_g) * (x W_u) W_o, with `act` "silu" or
+    "gelu" (the reference's `glu_ffn`)."""
+    return (activation(act)(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+def glu_activation(cfg) -> str:
+    """The activation of a config's gated FFNs: "silu" for SwiGLU, else
+    the tanh "gelu" (the reference's rule for its MoE experts and, for
+    "swiglu" and "geglu", its dense FFNs)."""
+    return "silu" if cfg.activation == "swiglu" else "gelu"
+
+
 class ParamInit:
     """The reference `ParamFactory`'s scheme on a `torch.Generator`:
     fan-in-scaled normal for dense weights, unit normal for the
@@ -102,4 +117,4 @@ class ParamInit:
 
 
 __all__ = ["ACTIVATIONS", "ParamInit", "activation", "compute_dtype",
-           "mlp_ffn", "rms_norm", "rope"]
+           "glu_activation", "glu_ffn", "mlp_ffn", "rms_norm", "rope"]

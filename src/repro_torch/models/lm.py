@@ -1,13 +1,15 @@
 """Top-level language model of the port: embedding, the layer stack,
 head; prefill and decode for serving.
 
-The counterpart of `repro.models.lm` for two kinds of stack: pure Mamba
-(Mamba2-1.3B, every layer (mixer "mamba", ffn "none")) and dense
-attention (StarCoder2-3B, every layer (mixer "attn", ffn "dense") with
-the plain MLP). `layer_plan` picks each layer's parts and
+The counterpart of `repro.models.lm` for decoder-only stacks: each
+layer a mixer ("attn" GQA, "mla" DeepSeek-V2's latent attention, or
+"mamba") and an FFN ("dense", gated SwiGLU/GeGLU or the plain MLP;
+"moe"; or "none"), in any mix: pure Mamba (Mamba2-1.3B), dense attention
+(StarCoder2-3B), MoE on every layer (Qwen3-MoE), MLA with a leading
+dense layer (DeepSeek-V2), and the Mamba/attention hybrid with MoE every
+other layer (Jamba). `layer_plan` picks each layer's parts and
 `DecoderLayer` applies them as the reference's `_apply_layer` does. A
-plan with anything else (a stack mixing Mamba and attention, MLA, MoE, a
-gated FFN, a Mamba layer with an FFN, cross attention) raises
+plan with cross attention or an encoder-decoder stack raises
 `NotImplementedError` naming the ROADMAP item that brings it.
 
 Differences of form from the reference, none of substance:
@@ -17,16 +19,20 @@ Differences of form from the reference, none of substance:
 * the weights live in the compute dtype (bf16 for the published
   configs), cast once when the model is built, where the reference
   keeps f32 masters and casts them on every call;
-* the attention layers update their KV cache in place
+* the attention layers update their caches in place
   (`models.attention`); decode takes `kv_len` as a Python int.
 
 `numpy_params` and `from_reference` carry weights across packages: the
-first fills the reference's parameter tree from numpy, the second loads
-such a tree (from either) into the port.
+first fills the reference's parameter tree (leading dense layers under
+"prefix", the periodic layers stacked by their offset in the period
+under "offsets") from numpy, the second loads such a tree (from either)
+into the port.
 """
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -35,12 +41,13 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
-from repro_torch.models.common import (ACTIVATIONS, ParamInit,
-                                       compute_dtype, mlp_ffn, rms_norm)
+from repro_torch.models import moe
+from repro_torch.models.common import (ParamInit, compute_dtype,
+                                       glu_activation, glu_ffn, mlp_ffn,
+                                       rms_norm)
 
-_HYBRID = "11d (the Mamba/attention hybrid)"
-_MOE = "11c (MoE)"
 _DENSE = "11f (the catalog's other dense and encoder-decoder models)"
+GATED = ("swiglu", "geglu")   # activations whose dense FFN is `glu_ffn`
 
 
 # ------------------------------------------------------------- layer plan
@@ -63,40 +70,24 @@ def layer_plan(cfg, L: int, decoder: bool):
     return sigs
 
 
-def _unported(cfg, sig) -> Optional[tuple]:
-    """(what, ROADMAP item) of a layer the port cannot run, else None."""
-    mixer, ffn, cross = sig
-    if cross or cfg.enc_dec:
-        return "encoder-decoder cross attention", _DENSE
-    if mixer == "mla":
-        return "MLA", "11c (MoE; MLA comes with DeepSeek-V2)"
-    if ffn == "moe":
-        return "MoE FFNs", _MOE
-    if mixer == "mamba" and ffn != "none":
-        return "Mamba layers with an FFN", _HYBRID
-    if mixer == "mamba":
-        return None
-    if ffn != "dense":
-        return "attention layers without an FFN", _DENSE
-    if cfg.activation not in ACTIVATIONS:
-        return f"the gated {cfg.activation} FFN", _DENSE
-    return None
+def period(cfg) -> int:
+    """Layers in one repeat of the plan after the leading dense layers:
+    the attention period, widened to a multiple of the MoE period (the
+    reference's `_period`; 8 for Jamba)."""
+    p = cfg.attn_period or 1
+    if cfg.num_experts and cfg.moe_period > 1:
+        p = math.lcm(p, cfg.moe_period)
+    return p
 
 
 def _check_plan(cfg, sigs) -> None:
-    """Raise `NotImplementedError` unless the stack is pure Mamba or pure
-    attention and every layer of `sigs` is one the port runs."""
-    if len({mixer for mixer, _, _ in sigs}) > 1:
+    """Raise `NotImplementedError` for a plan with cross attention or an
+    encoder-decoder stack, which the port does not run yet."""
+    if cfg.enc_dec or any(cross for _, _, cross in sigs):
         raise NotImplementedError(
-            f"{cfg.name}: stacks mixing Mamba and attention layers are not "
-            f"ported yet (ROADMAP queue A item {_HYBRID})")
-    for sig in sigs:
-        bad = _unported(cfg, sig)
-        if bad is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {bad[0]} are not ported yet (ROADMAP queue A "
-                f"item {bad[1]}); the port runs pure-Mamba and "
-                f"dense-attention stacks")
+            f"{cfg.name}: encoder-decoder stacks and cross attention are "
+            f"not ported yet (ROADMAP queue A item {_DENSE}); the port runs "
+            f"decoder-only stacks")
 
 
 # ------------------------------------------------------------------ model
@@ -105,38 +96,49 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class DenseFFN(nn.Module):
-    """The plain 2-matrix FFN (`mlp_ffn`) over fixed weights wi (d, d_ff)
-    and wo (d_ff, d)."""
+    """The dense FFN over fixed weights: gated (`glu_ffn` over wi_gate
+    and wi_up (d, d_ff) and wo (d_ff, d)) for a SwiGLU or GeGLU config,
+    else the plain 2-matrix `mlp_ffn` over wi (d, d_ff) and wo."""
 
     def __init__(self, cfg, weights: dict):
         super().__init__()
-        self.act = cfg.activation
-        self.wi = _frozen(weights["wi"])
-        self.wo = _frozen(weights["wo"])
+        self.cfg = cfg
+        self.gated = cfg.activation in GATED
+        for name, w in weights.items():
+            self.register_parameter(name, _frozen(w))
 
     def forward(self, x):
-        return mlp_ffn(x, self.wi, self.wo, self.act)
+        if self.gated:
+            return glu_ffn(x, self.wi_gate, self.wi_up, self.wo,
+                           glu_activation(self.cfg))
+        return mlp_ffn(x, self.wi, self.wo, self.cfg.activation)
 
 
 class DecoderLayer(nn.Module):
     """One layer of the reference's `_apply_layer`: x + mixer(rms_norm(x,
-    ln1)), then, with a dense FFN, x + ffn(rms_norm(x, ln2)). `w` holds
-    the layer's weights in the reference tree's names: ln1 and "mamba"
-    or "attn", plus ln2 and "ffn" with a dense FFN."""
+    ln1)), then, with an FFN, x + ffn(rms_norm(x, ln2)). `w` holds the
+    layer's weights in the reference tree's names: ln1 and "attn" (GQA or
+    MLA) or "mamba", plus ln2 and "ffn" (dense) or "moe"."""
 
     def __init__(self, cfg, sig, w: dict):
         super().__init__()
         mixer, ffn, _ = sig
+        self.mixer, self.ffn_kind = mixer, ffn
         self.ln1 = _frozen(w["ln1"])
-        self.is_attn = mixer == "attn"
-        if self.is_attn:
+        self.is_attn = mixer != "mamba"
+        if mixer == "attn":
             self.attn = attn.GQAAttention(cfg, w["attn"])
+        elif mixer == "mla":
+            self.attn = attn.MLAAttention(cfg, w["attn"])
         else:
             self.mamba = mb.Mamba2Mixer(cfg, w["mamba"])
         self.has_ffn = ffn == "dense"
-        if self.has_ffn:
+        if ffn != "none":
             self.ln2 = _frozen(w["ln2"])
+        if ffn == "dense":
             self.ffn = DenseFFN(cfg, w["ffn"])
+        elif ffn == "moe":
+            self.moe = moe.MoEFFN(cfg, w["moe"])
 
     def forward(self, x, cache=None, *, positions=None,
                 kv_len: Optional[int] = None, force: Optional[str] = None):
@@ -147,8 +149,10 @@ class DecoderLayer(nn.Module):
         else:
             o, cache = self.mamba(h, cache, force=force)
         x = x + o
-        if self.has_ffn:
+        if self.ffn_kind == "dense":
             x = x + self.ffn(rms_norm(x, self.ln2))
+        elif self.ffn_kind == "moe":
+            x = x + self.moe(rms_norm(x, self.ln2))
         return x, cache
 
 
@@ -168,9 +172,31 @@ class DecoderLM(nn.Module):
             DecoderLayer(cfg, sig, w) for sig, w in zip(sigs, layers))
 
 
-def _dense_ffn_shapes(cfg):
+def _init_layer(init, cfg, sig) -> dict:
+    """One layer's weights for `sig`, drawn through `init` (a `ParamInit`
+    or `_NumpyDraws`) at the reference's fan-ins, in its tree's names."""
+    mixer, ffn, _ = sig
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi": ((d, f), d), "wo": ((f, d), f)}
+    w = {"ln1": init.zeros((d,))}
+    if mixer == "attn":
+        w["attn"] = attn.gqa_init(init, cfg)
+    elif mixer == "mla":
+        w["attn"] = attn.mla_init(init, cfg)
+    else:
+        w["mamba"] = mb.mamba_init(init, cfg)
+    if ffn == "dense":
+        w["ln2"] = init.zeros((d,))
+        if cfg.activation in GATED:
+            w["ffn"] = {"wi_gate": init.dense((d, f), fan_in=d),
+                        "wi_up": init.dense((d, f), fan_in=d),
+                        "wo": init.dense((f, d), fan_in=f)}
+        else:
+            w["ffn"] = {"wi": init.dense((d, f), fan_in=d),
+                        "wo": init.dense((f, d), fan_in=f)}
+    elif ffn == "moe":
+        w["ln2"] = init.zeros((d,))
+        w["moe"] = moe.moe_init(init, cfg)
+    return w
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu") -> DecoderLM:
@@ -185,75 +211,84 @@ def init_model(cfg, *, seed: int = 0, device="cpu") -> DecoderLM:
     ln_f = init.zeros((d,))
     head = None if cfg.tie_embeddings else init.dense((d, cfg.vocab_size),
                                                       fan_in=d)
-    layers = []
-    for mixer, ffn, _ in sigs:
-        w = {"ln1": init.zeros((d,))}
-        if mixer == "attn":
-            w["attn"] = attn.gqa_init(init, cfg)
-        else:
-            w["mamba"] = mb.mamba_init(init, cfg)
-        if ffn == "dense":
-            w["ln2"] = init.zeros((d,))
-            w["ffn"] = {k: init.dense(shape, fan_in=fan)
-                        for k, (shape, fan) in _dense_ffn_shapes(cfg).items()}
-        layers.append(w)
+    layers = [_init_layer(init, cfg, sig) for sig in sigs]
     return DecoderLM(cfg, embed, ln_f, head, layers)
 
 
 # ------------------------------------------------------ weights across
+_CHUNK = 1 << 22   # elements of a leaf drawn from one numpy generator
+
+
+class _NumpyDraws:
+    """`ParamInit`'s interface over numpy, for `numpy_params`: f32 arrays
+    with the leading axis `lead` in front of each shape. Leaf i (in draw
+    order) is drawn in chunks of `_CHUNK` elements, chunk c from
+    `np.random.default_rng([seed, i, c])`, on the threads of `pool` (the
+    draws of the published widths run to billions of normals)."""
+
+    def __init__(self, seed: int, pool: ThreadPoolExecutor):
+        self.seed, self.pool = seed, pool
+        self.lead: tuple = ()
+        self.leaves = 0
+
+    def _normal(self, shape, std: float) -> np.ndarray:
+        out = np.empty(self.lead + tuple(shape), np.float32)
+        flat, leaf = out.reshape(-1), self.leaves
+        self.leaves += 1
+
+        def fill(c):
+            part = flat[c * _CHUNK:(c + 1) * _CHUNK]
+            np.random.default_rng([self.seed, leaf, c]).standard_normal(
+                out=part, dtype=np.float32)
+            part *= np.float32(std)
+
+        list(self.pool.map(fill, range(-(-flat.size // _CHUNK))))
+        return out
+
+    def dense(self, shape, fan_in: int) -> np.ndarray:
+        return self._normal(shape, 1.0 / math.sqrt(max(fan_in, 1)))
+
+    def embed(self, shape) -> np.ndarray:
+        return self._normal(shape, 1.0)
+
+    def zeros(self, shape) -> np.ndarray:
+        return np.zeros(self.lead + tuple(shape), np.float32)
+
+
 def numpy_params(cfg, seed: int = 0):
     """(params, meta) in the reference's layout — the tree and side table
-    that `repro.models.lm.init_model` returns for a pure-Mamba or
-    dense-attention config — filled from `np.random.default_rng(seed)`
+    that `repro.models.lm.init_model` returns for a decoder-only config:
+    "embed", "ln_f", "head" and "decoder" = {"prefix": the
+    `first_dense_layers` leading layers, each leaf with a leading axis
+    of 1; "offsets": one tree per offset o in the period, each leaf
+    stacked over the groups of layers pre_n + o + g period} — filled
     with the reference's scales (fan-in-scaled normal, unit-normal
-    embedding, zeros) as f32 numpy arrays. The same weights then reach
-    the JAX package (`jnp.asarray`) and the port (`from_reference`) with
-    no jax on the card."""
+    embedding, zeros) as f32 numpy arrays (see `_NumpyDraws` for the
+    draws). The same weights then reach the JAX package (`jnp.asarray`)
+    and the port (`from_reference`) with no jax on the card."""
     sigs = layer_plan(cfg, cfg.num_layers, False)
     _check_plan(cfg, sigs)
-    rng = np.random.default_rng(seed)
-    L, d = cfg.num_layers, cfg.d_model
-
-    def normal(shape, fan_in):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
-            1 / math.sqrt(fan_in))
-
-    def zeros(shape):
-        return np.zeros(shape, np.float32)
-
-    params = {"embed": normal((cfg.vocab_size, d), 1), "ln_f": zeros((d,))}
-    if not cfg.tie_embeddings:
-        params["head"] = normal((d, cfg.vocab_size), d)
-    layer = {"ln1": zeros((L, d))}
-    if sigs[0][0] == "attn":
-        H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        layer["attn"] = {"wq": normal((L, d, H, Dh), d),
-                         "wk": normal((L, d, Hkv, Dh), d),
-                         "wv": normal((L, d, Hkv, Dh), d),
-                         "wo": normal((L, H, Dh, d), H * Dh)}
-        if cfg.qk_norm:
-            layer["attn"]["qnorm"] = zeros((L, Dh))
-            layer["attn"]["knorm"] = zeros((L, Dh))
-        layer["ln2"] = zeros((L, d))
-        layer["ffn"] = {k: normal((L,) + shape, fan)
-                        for k, (shape, fan) in _dense_ffn_shapes(cfg).items()}
-    else:
-        di, H = cfg.ssm_inner, cfg.ssm_heads
-        G, N, kconv = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
-        c_conv = di + 2 * G * N
-        layer["mamba"] = {
-            "in_proj": normal((L, d, 2 * di + 2 * G * N + H), d),
-            "conv_w": normal((L, kconv, c_conv), kconv),
-            "conv_b": zeros((L, c_conv)),
-            "a_log": zeros((L, H)),
-            "dt_bias": zeros((L, H)),
-            "d_skip": zeros((L, H)),
-            "norm": zeros((L, di)),
-            "out_proj": normal((L, di, d), di),
-        }
-    params["decoder"] = {"prefix": [], "offsets": [layer]}
-    meta = {"decoder": {"sigs": sigs, "period": 1, "groups": L,
-                        "pre_n": 0}}
+    p, pre_n = period(cfg), cfg.first_dense_layers
+    groups, rest = divmod(cfg.num_layers - pre_n, p)
+    if rest:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers after "
+                         f"{pre_n} leading ones is no multiple of the "
+                         f"period {p}")
+    d = cfg.d_model
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        draws = _NumpyDraws(seed, pool)
+        params = {"embed": draws.embed((cfg.vocab_size, d)),
+                  "ln_f": draws.zeros((d,))}
+        if not cfg.tie_embeddings:
+            params["head"] = draws.dense((d, cfg.vocab_size), fan_in=d)
+        draws.lead = (1,)
+        prefix = [_init_layer(draws, cfg, sigs[l]) for l in range(pre_n)]
+        draws.lead = (groups,)
+        offsets = [_init_layer(draws, cfg, sigs[pre_n + o])
+                   for o in range(p)]
+    params["decoder"] = {"prefix": prefix, "offsets": offsets}
+    meta = {"decoder": {"sigs": sigs, "period": p, "groups": groups,
+                        "pre_n": pre_n}}
     return params, meta
 
 
@@ -261,13 +296,15 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
     """The port's model holding the weights of a reference parameter
     tree (`repro.models.lm.init_model`'s or `numpy_params`'s; leaves as
     numpy arrays or anything `np.asarray` takes), cast once to the
-    config's compute dtype on `device`. Layer l of the stack is group
-    l // period of `params["decoder"]["offsets"][l % period]`, whose
-    leaves carry a leading (groups,) axis (the stacks the port runs have
-    no prefix layers)."""
+    config's compute dtype on `device`. Layer l < pre_n is
+    `params["decoder"]["prefix"][l]` (leaves with a leading axis of 1);
+    layer l >= pre_n is group (l - pre_n) // period of
+    `params["decoder"]["offsets"][(l - pre_n) % period]`, whose leaves
+    carry a leading (groups,) axis."""
     md = meta["decoder"]
     _check_plan(cfg, md["sigs"])
     dtype = compute_dtype(cfg.dtype)
+    pre_n, p = md["pre_n"], md["period"]
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32)).to(device, dtype)
@@ -277,9 +314,10 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
             return {k: take(v, g) for k, v in tree.items()}
         return t(tree[g])
 
-    offsets = params["decoder"]["offsets"]
-    layers = [take(offsets[l % md["period"]], l // md["period"])
-              for l in range(len(md["sigs"]))]
+    dec = params["decoder"]
+    layers = [take(dec["prefix"][l], 0) for l in range(pre_n)]
+    layers += [take(dec["offsets"][(l - pre_n) % p], (l - pre_n) // p)
+               for l in range(pre_n, len(md["sigs"]))]
     head = params.get("head")
     return DecoderLM(cfg, t(params["embed"]), t(params["ln_f"]),
                      None if head is None else t(head), layers)
@@ -300,21 +338,28 @@ def lm_logits(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg, B: int, max_len: int, *, device="cpu"):
     """Zero decode caches, one dict per layer, in the reference's layout:
-    an attention layer's k and v (B, max_len, Hkv, Dh) in the compute
-    dtype; a Mamba layer's conv window in the compute dtype and SSD
-    state in f32 (`max_len` does not apply to them)."""
+    a GQA layer's k and v (B, max_len, Hkv, Dh) and an MLA layer's ckv
+    (B, max_len, kv_lora_rank) and krope (B, max_len, rope_head_dim) in
+    the compute dtype; a Mamba layer's conv window in the compute dtype
+    and SSD state in f32 (`max_len` does not apply to them)."""
     dt = compute_dtype(cfg.dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     caches = []
     for mixer, _, _ in layer_plan(cfg, cfg.num_layers, False):
         if mixer == "attn":
             shape = (B, max_len, cfg.num_kv_heads, cfg.head_dim)
-            caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                           "v": torch.zeros(shape, dtype=dt, device=device)})
+            caches.append({"k": zeros(*shape), "v": zeros(*shape)})
+            continue
+        if mixer == "mla":
+            caches.append({"ckv": zeros(B, max_len, cfg.kv_lora_rank),
+                           "krope": zeros(B, max_len, cfg.rope_head_dim)})
             continue
         c_conv = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
         caches.append({
-            "conv": torch.zeros(B, cfg.ssm_conv - 1, c_conv, dtype=dt,
-                                device=device),
+            "conv": zeros(B, cfg.ssm_conv - 1, c_conv),
             "ssd": torch.zeros(B, cfg.ssm_heads, cfg.ssm_head_dim,
                                cfg.ssm_state, dtype=torch.float32,
                                device=device)})
@@ -353,4 +398,4 @@ def forward_decode(model: DecoderLM, tokens: torch.Tensor, cache,
 
 __all__ = ["DecoderLM", "embed_tokens", "forward_decode",
            "forward_prefill", "from_reference", "init_cache", "init_model",
-           "layer_plan", "lm_logits", "numpy_params"]
+           "layer_plan", "lm_logits", "numpy_params", "period"]

@@ -3,7 +3,9 @@ K4 SSD scan, K5 attention, K6 prefix sums) against their plain PyTorch versions,
 card (learned-size ticks among them), the replays, pools and a small
 `CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
 serve with K4 against the plain path, a 2-layer full-width
-StarCoder2 serve through K5 against the JAX package's golden, and the
+StarCoder2 serve through K5 against the JAX package's golden, K5 at
+MLA's widths (192, 128), K4 at Jamba's state width 16, the SMOKE MoE,
+MLA and hybrid sessions against their plain paths, and the
 runtime bridge (its wave plan, an NCCL world of 1). Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
@@ -1182,6 +1184,115 @@ def test_two_layer_full_width_starcoder2_matches_golden(cuda):
         np.testing.assert_allclose(
             [float(c[key].double().norm()) for c in cache],
             gold[f"{key}_cache_norm"], rtol=1e-4)
+
+
+# ---- K5 at MLA's widths, K4 at Jamba's state width, the MoE models -----
+
+# (B, H, Hkv, S, T, D, Dv, q_offset): K5 at MLA's (192, 128): the smoke
+# heads, a chunk at q_offset 250 against T > S, a ragged S against T > S
+# with GQA groups, and DeepSeek-V2's prefill shape (4 x 1000 tokens, 128
+# heads)
+MLA_SHAPES = [(1, 2, 2, 16, 16, 192, 128, 0), (2, 4, 2, 150, 400, 192, 128, 250),
+              (2, 4, 4, 23, 40, 192, 128, 17), (4, 128, 128, 1000, 1000, 192,
+                                                 128, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,Dv,q_offset", MLA_SHAPES)
+def test_flash_attention_kernel_mla_widths_match_plain(
+        cuda, B, H, Hkv, S, T, D, Dv, q_offset, dtype, causal):
+    """K5's (192, 128) instance against `flash_attention_ref` at the
+    reference's bars (atol 2e-6 f32, 2e-2 bf16), one launch per call;
+    o is (B, H, S, Dv)."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                               device=cuda).to(dtype)
+               for s in ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               force="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, S, Dv)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_mla_reads_strided_views(cuda, dtype):
+    """MLA's prefill passes (B, S, H, 192) q and k and (B, S, H, 128) v
+    as transposed views: the result of contiguous copies, and o (B, H,
+    S, 128) laid out like q."""
+    B, S, H = 2, 70, 6
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, H, d)).astype(
+        np.float32), device=cuda).to(dtype).transpose(1, 2)
+        for d in (192, 192, 128))
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous())
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert got.shape == (B, H, S, 128) and got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,Dh,N,lc", [(4, 1000, 128, 1, 64, 16, 128),
+                                             (1, 300, 8, 1, 64, 16, 128)])
+def test_ssd_kernel_at_jamba_state_width(cuda, B, L, H, G, Dh, N, lc,
+                                         dtype):
+    """K4 at Jamba's N = 16 (its Mamba prefill shape, and a ragged
+    short one) against `ssd_chunked_ref` at the reference's bar, the
+    absolute part scaled by max|y| at the prefill shape."""
+    args = ssd_inputs(B, L, H, G, Dh, N, seed=L + N, dtype=dtype,
+                      device=cuda)
+    y, s = ops.ssd_scan(*args, lc=lc)
+    y_ref, s_ref = ops.ssd_scan(*args, lc=lc, force="ref")
+    torch.cuda.synchronize()
+    scale = float(y_ref.float().abs().max()) if B * L >= 4000 else 1.0
+    assert_ssd_close(y, y_ref, atol=5e-4 * scale)
+    assert_ssd_close(s, s_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,k4,k5", [("qwen3-moe-235b-a22b", 0, 2),
+                                        ("deepseek-v2-236b", 0, 3),
+                                        ("jamba-v0.1-52b", 7, 1)])
+def test_moe_smoke_serve_on_card_matches_plain(cuda, arch, k4, k5):
+    """The SMOKE MoE, MLA and hybrid models on the card in f32 (DeepSeek-
+    V2's at MLA's published head widths, 128 + 64 and 128: K5 has no
+    instance at its SMOKE widths): K4 once per Mamba layer and K5 once
+    per attention layer in the prefill, nothing else, and the plain
+    path's tokens and logits (1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    if cfg.mla:
+        cfg = dataclasses.replace(cfg, head_dim=128, rope_head_dim=64)
+    model = lm.init_model(cfg, seed=0, device=cuda)
+    runs = {}
+    prompts = np.random.default_rng(5).integers(0, 256, (4, 40))
+    for force in ("ref", None):
+        sess = ServeSession(arch, max_len=46, force=force, model=model)
+        ops.reset_launches()
+        out = list(sess.stream(prompts, 6))
+        counts = ops.launch_counts()
+        assert (counts["ssd_scan"], counts["flash_attention"]) == (
+            (0, 0) if force else (k4, k5))
+        assert sum(counts.values()) == counts["ssd_scan"] + counts[
+            "flash_attention"]
+        runs[force] = out
+    for (tok, got), (want_tok, want) in zip(runs[None], runs["ref"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert torch.equal(tok, want_tok)
 
 
 # ---- K6: prefix sums in the JAX package's scan order ----------------------

@@ -299,16 +299,14 @@ def test_serve_session_defaults_and_limits(arch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: lm_serve.ServeSession("deepseek-v2-236b", device="cpu"),
-    lambda: get_smoke_config("jamba-v0.1-52b"),
+    lambda: lm_serve.ServeSession("gemma-7b", device="cpu"),
+    lambda: get_smoke_config("seamless-m4t-medium"),
     lambda: lm.init_model(dataclasses.replace(
-        get_smoke_config(ARCH), attn_period=2, num_heads=2, num_kv_heads=2,
-        head_dim=8)),
-    lambda: lm.numpy_params(dataclasses.replace(
-        get_smoke_config(ARCH), d_ff=32)),
+        get_smoke_config(ARCH), enc_dec=True, enc_layers=2)),
+    lambda: get_config("deepseek-7b"),
     lambda: get_config("gemma-7b"),
-    lambda: lm.init_model(dataclasses.replace(
-        get_smoke_config(ATTN_ARCH), activation="swiglu")),
+    lambda: lm.from_reference({}, {"decoder": {
+        "sigs": [("attn", "dense", True)]}}, get_smoke_config(ATTN_ARCH)),
     lambda: lm.numpy_params(dataclasses.replace(
         get_smoke_config(ATTN_ARCH), enc_dec=True, enc_layers=2)),
 ])
