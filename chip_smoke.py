@@ -19,10 +19,12 @@ and the runtime bridge's wave planner and wave-ordered all-reduce, the
 analysis plane's checks of the device step, and last Qwen3-MoE-235B-
 A22B, DeepSeek-V2-236B (MLA) and Jamba-v0.1-52B (the Mamba/attention
 hybrid) served at their published widths with every expert and the
-depth cut — and holds each hand-written CUDA kernel of those paths
-against its plain PyTorch version on the same inputs:
+depth cut, and last StarCoder2-3B trained at its published width
+through `repro_torch.launch.train.train` — and holds each hand-written
+CUDA kernel of those paths against its plain PyTorch version on the
+same inputs:
 
-1. the card's name and power limit; build the six kernels with nvcc
+1. the card's name and power limit; build the seven kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
    started together) and print nvcc's register and shared-memory
    report and the build time;
@@ -321,7 +323,37 @@ against its plain PyTorch version on the same inputs:
    bf16 model freed, the f32 pair at one period's depth (1, 2 and 8
    layers) with the plain prefill path and with the kernels; then a
    bf16 pair of DeepSeek-V2 at 2 layers (weights from `lm.init_model`),
-   the plain attention against K5 (192, 128), logits to atol 0.1.
+   the plain attention against K5 (192, 128), logits to atol 0.1;
+29. training (`train_phase`): K7 (the attention backward: softmax
+   statistics, dk and dv, dq; three launches counted as one call)
+   against `flash_attention_bwd_ref` at every (D, Dv) pair of
+   `flash_attention.WIDTHS`, f32 and bf16, causal and not, q_offset 0
+   and a chunk at q_offset 113 against T > S (`K7_CASES`), each
+   gradient within `K7_BAR` of its largest magnitude (1e-5 f32, 2e-2
+   bf16); then at StarCoder2-3B's train shape (4, 24, 2, 2048, 2048,
+   128) and DeepSeek-V2's MLA shape (4, 128, 128, 1000, 1000, 192, 128),
+   f32 and bf16, with its time beside the plain version's, the backward
+   of SDPA through `torch.autograd.grad` (null with the error where no
+   backend takes the shape) and the bound (`k7_bound_ms`); the train
+   golden (`train_golden`, `tests/data/
+   torch_port_train_starcoder2_golden.json`, the JAX package on the
+   CPU): StarCoder2-3B at its published width, 2 layers, f32, 3 AdamW
+   steps of batch 2 x 128 from `numpy_params(seed=0)`, with K5 + K7 and
+   with `force="ref"`: losses rtol 1e-5, grad norms rtol 1e-4, every
+   master leaf's norm rtol 1e-5; the main train path:
+   `train("starcoder2-3b", smoke=False, device="cuda")`, 30 layers,
+   bf16 on f32 masters, AdamW, 20 steps of 4 x 2048 tokens with the
+   gradient buckets planned by the Saath bridge, counters set to 0 just
+   before and read just after: the loss falls by the reference's bar
+   (mean of the last 5 below the mean of the first 5 minus 0.05), each
+   step launches K5 2 x layers times (remat recomputes the forward) and
+   K7 once a layer, the plan K1, K2 and K6 once a wave and nothing else
+   runs; ms a step, tokens/s, peak memory and the plan's waves printed;
+   a bf16 pair (2 layers, 4 x 2048 tokens: loss within 2e-2 and every
+   gradient leaf's norm within rtol 2e-2 of the plain attention's); and
+   `test_checkpoint_restart_bitwise` on the card at the smoke config
+   (20 steps, a checkpoint every 6, the one at 18 deleted, resumed from
+   12: losses equal at rtol 1e-6).
 
 Each phase prints its seconds (`[n] phase seconds`).
 
@@ -329,8 +361,9 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-sixteen main-path runs, split by path in `launches_by_path`; K4's, K5's
-and K6's records also list further timed shapes under `shapes`), the
+seventeen main-path runs, split by path in `launches_by_path`; K4's,
+K5's, K6's and K7's records also list further timed shapes under
+`shapes`, K7's the train path's step time under `train`), the
 script's
 wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
 {...}}`.
@@ -339,8 +372,9 @@ without a CUDA device.
 
 `python3 chip_smoke.py --profile` adds one profiled chunk of each fleet
 path (`profile_chunk`) and one profiled prefill and 16 decode steps of
-each serve path (`profile_serve`): wall time per event step, prefill or
-token, device busy share, kernel launches and the kernels with the most
+each serve path (`profile_serve`) and one profiled warm train step
+(`profile_train`): wall time per event step, prefill, token or train
+step, device busy share, kernel launches and the kernels with the most
 device time.
 """
 import contextlib
@@ -446,7 +480,8 @@ HOST_PLANE = ("saath", "aalo", "fifo", "scf", "srtf", "lwtf", "varys-sebf",
               "uc-tcp", "saath-torch")
 # the port's kernels by the names the profiler gives them
 PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
-                "ssd_gram<", "flash_fwd", "prefix_sum_kernel")
+                "ssd_gram<", "flash_fwd", "prefix_sum_kernel", "bwd_stats<",
+                "bwd_dkdv<", "bwd_dq<")
 # phase 21: the reference's pool-throughput gate (benchmarks/
 # pool_throughput.py:236), read here, not gated
 POOL_GATE = 4.0
@@ -465,6 +500,23 @@ BRIDGE_WAVES = [["grad/0", "moe_a2a/0", "ckpt/upload"],
                 ["grad/1", "moe_a2a/1", "kv/migrate"], ["reshard/params"],
                 ["grad/2", "moe_a2a/2"], ["grad/3"], ["grad/4"], ["grad/5"]]
 PLAN_REPS = 20
+# phase 29: training. K7 (the attention backward) at every width pair of
+# K5 on (B, H, Hkv, S, T, q_offset) cases (two heads a KV head, q_offset
+# 0; a chunk at q_offset 113 against T > S; G = 2 with ragged tiles),
+# then StarCoder2-3B's train shape (4 x 2048 tokens) and DeepSeek-V2's
+# MLA shape
+K7_CASES = [(2, 4, 2, 100, 100, 0), (1, 2, 1, 37, 150, 113),
+            (2, 6, 3, 130, 130, 0)]
+K7_TRAIN = (4, 24, 2, 2048, 2048, 128, 128, 0)
+K7_MLA = (4, 128, 128, 1000, 1000, 192, 128, 0)
+# its bars, of each gradient's largest magnitude: f32 sums in another
+# order; bf16 adds the rounding of the gradients to bf16 (2^-8)
+K7_BAR = {"float32": 1e-5, "bfloat16": 2e-2}
+TRAIN_GOLDEN = ROOT / "tests" / "data" / \
+    "torch_port_train_starcoder2_golden.json"
+# the main train path: StarCoder2-3B at its published width and depth
+# (30 layers), bf16 on f32 masters, AdamW, batch x seq tokens a step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
 
 
 def fail(msg):
@@ -767,6 +819,56 @@ def profile_serve(sess, prompts, n_decode=16):
         print(f"[p] serve decode, {n_decode} steps: wall "
               f"{1e3 * wall / n_decode:.3f} ms per token (profiled)")
         report_profile(prof, wall, n_decode, "token")
+
+
+def profile_train(warm_steps=2):
+    """(`--profile` only) Where the train step's time goes: StarCoder2-3B
+    at its published width, as the main train path runs it (bf16 on f32
+    masters, AdamW, `TRAIN_BATCH` x `TRAIN_SEQ` tokens), `warm_steps`
+    steps unprofiled, then one step under torch.profiler: its wall time,
+    device busy share, the kernels with the most device time and each of
+    the port's kernels (K5 `flash_fwd`, K7 `bwd_*`) with its share of
+    the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = get_config(ATTN_ARCH)
+    params = lm.init_masters(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, total_steps=warm_steps + 1,
+                         groups=lm.reference_groups(cfg, list(params)))
+    opt_state = opt.init(params)
+    step_fn = ST.make_train_step(cfg, opt)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                           d_model=cfg.d_model, device=dev)
+
+    def batch(step):
+        tokens = data.batch(step)["tokens"]
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    for step in range(warm_steps):
+        params, opt_state, _ = step_fn(params, opt_state, step, batch(step))
+    b = batch(warm_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, warm_steps, b)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"[p] train step of {cfg.num_layers} layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, after {warm_steps}: wall {1e3 * wall:.3f} "
+          f"ms (profiled)")
+    report_profile(prof, wall, 1, "step")
+    del params, opt_state, step_fn, prof
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -3007,6 +3109,399 @@ def analysis_phase(tag, fleet, params, leaf):
     return tally, err
 
 
+def k7_design_macs(D, Dv):
+    """Multiply-adds a pair that K7's three launches do: the scores in
+    each of the three, do . v in the dk/dv and dq launches, p do, ds q
+    and ds k once."""
+    return 5 * D + 3 * Dv
+
+
+def k7_bound_ms(shape, elt):
+    """Of K7 at `shape` (`attention_widths`, causal). Bytes: q, o and do
+    once (B H S (D + 2 Dv)), k and v once (B Hkv T (D + Dv)), and the
+    gradients written once (as many again as q, k and v), elt bytes an
+    element. Operations: the products the function needs, 3 D + 2 Dv
+    multiply-adds a pair (the scores q . k, do . v, p do, ds k and ds q
+    once each; K7's three launches do 5 D + 3 Dv, `k7_design_macs`), for
+    each unmasked pair (`attention_bound_ms`'s count), plus delta's Dv a
+    query row; at the bf16 tensor-core rate for bf16 inputs, the f32
+    rate for f32. Returns (ms, what bounds it, pairs)."""
+    B, H, Hkv, S, T, D, Dv, q_offset = attention_widths(shape)
+    _, _, pairs = attention_bound_ms(shape, elt)
+    nbytes = elt * (B * H * S * (2 * D + 2 * Dv)
+                    + 2 * B * Hkv * T * (D + Dv))
+    ops_ = 2 * ((3 * D + 2 * Dv) * pairs + B * H * S * Dv)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops_ / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S)
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            pairs)
+
+
+def k7_inputs(shape, dtype, seed, dev):
+    """Seeded q, k, v and do of `shape`, laid out as the train path lays
+    them (transposed (B, S, H, D) tensors), and the forward's o."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, H, Hkv, S, T, D, Dv, q_offset = attention_widths(shape)
+    rng = np.random.default_rng(seed)
+
+    def t(*s):
+        x = torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=dev).to(dtype)
+        return x.transpose(1, 2)
+
+    q, k, v, do = t(B, S, H, D), t(B, T, Hkv, D), t(B, T, Hkv, Dv), \
+        t(B, S, H, Dv)
+    o = ops.flash_attention(q, k, v, q_offset=q_offset, force="ref")
+    return q, k, v, o, do
+
+
+def k7_check(tag, shape, dtype, dev, causal=True):
+    """K7 at `shape` against its plain version: fails past `K7_BAR` of
+    each gradient's largest magnitude. Returns (inputs, max abs error,
+    max relative error)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    q, k, v, o, do = k7_inputs(shape, dtype, shape[3] + shape[5], dev)
+    qo = shape[-1]
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                  q_offset=qo)
+    want = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   q_offset=qo, force="ref")
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = float((g.float() - w.float()).abs().max())
+        m = float(w.float().abs().max())
+        err, rel = max(err, e), max(rel, e / max(m, 1e-30))
+        bar = K7_BAR[str(dtype)[6:]] * m
+        if e > bar or g.dtype != dtype or g.shape != w.shape or not bool(
+                torch.isfinite(g).all()):
+            fail(f"[{tag}] K7 disagrees with flash_attention_bwd_ref at "
+                 f"{shape} {dtype} causal={causal}: {name} max abs error "
+                 f"{e:.3e} (bar {bar:.3e})")
+    return (q, k, v, o, do), err, rel
+
+
+def sdpa_bwd_any(q, k, v, do):
+    """The backward of `sdpa` through `torch.autograd.grad` (the forward
+    once, outside the timing): (its device ms over 3 calls, None), or
+    (None, the error) where no backend of this install takes the shape
+    (a yardstick only; the port never calls it)."""
+    import torch
+
+    try:
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o = sdpa(qs, ks, vs)
+        torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
+                                               retain_graph=True), 3), None
+
+
+def k7_shape_record(tag, shape, dtype, dev, what):
+    """K7 at `shape` within its bar, then its time beside the plain
+    version's, SDPA's backward (`sdpa_bwd_any`) and the bound. Returns
+    the record for the kernels line's `shapes`."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    (q, k, v, o, do), err, rel = k7_check(tag, shape, dtype, dev)
+    bnd, by, pairs = k7_bound_ms(shape, q.element_size())
+    ms = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do), 3)
+    plain = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                    force="ref"), 2)
+    lib, lib_err = sdpa_bwd_any(q, k, v, do)
+    _, _, _, _, _, D, Dv, _ = attention_widths(shape)
+    flop = 2 * (3 * D + 2 * Dv) * pairs
+    done = 2 * k7_design_macs(D, Dv) * pairs
+    print(f"[{tag}] K7 at {what} {shape} {str(dtype)[6:]}: max abs error "
+          f"{err:.3e} ({rel:.2e} of the largest gradient); kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, SDPA backward "
+          + (f"{lib:.4f} ms" if lib is not None else f"null ({lib_err})")
+          + f", bound {bnd:.4f} ms ({by}; {pairs} unmasked pairs); "
+          f"{flop / ms / 1e9:.1f} TFLOP/s of the function's products "
+          f"({done / ms / 1e9:.1f} of the {done / flop:.2f}x its three "
+          f"launches do), {bnd / ms:.2%} of the bound; {smi()}", flush=True)
+    del q, k, v, o, do
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib, "library_error": lib_err,
+            "max_abs_err": err}
+
+
+def train_golden(tag, force):
+    """Phase 29's golden run: StarCoder2-3B at its published width, 2
+    layers, f32, `numpy_params(seed=0)`, 3 AdamW steps of batch 2 x 128
+    through `make_train_step` on the card (`force` "ref" pins the plain
+    attention), held to `TRAIN_GOLDEN` (the JAX package on the CPU):
+    loss rtol 1e-5, grad_norm rtol 1e-4, the f64 norm of every master
+    leaf after step 3 rtol 1e-5. Returns the launch counts of the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    gold = json.loads(TRAIN_GOLDEN.read_text())
+    cfg = dataclasses.replace(get_config(ATTN_ARCH), **gold["config_cuts"])
+    params, _ = lm.numpy_params(cfg, seed=gold["seed"])
+    masters = lm.masters_from_reference(params, cfg, device="cuda")
+    del params
+    opt = make_optimizer(cfg, total_steps=gold["steps"],
+                         groups=lm.reference_groups(cfg))
+    state = opt.init(masters)
+    step_fn = ST.make_train_step(cfg, opt, force=force)
+    data = SyntheticLMData(cfg.vocab_size, gold["seq"], gold["batch"],
+                           seed=gold["seed"], device="cuda")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "leaf": 0.0}
+
+    def within(what, got, want, rtol, key):
+        rel = abs(got - want) / abs(want)
+        worst[key] = max(worst[key], rel)
+        if rel > rtol:
+            fail(f"[{tag}] the train golden ({force or 'kernels'}): {what} "
+                 f"{got!r} against {want!r} (rtol {rtol})")
+
+    ops.reset_launches()
+    for step in range(gold["steps"]):
+        t = data.batch(step)["tokens"]
+        masters, state, m = step_fn(masters, state, step,
+                                    {"tokens": t[:, :-1],
+                                     "labels": t[:, 1:]})
+        within(f"loss at step {step}", float(m["loss"]),
+               gold["losses"][step], 1e-5, "loss")
+        within(f"grad_norm at step {step}", float(m["grad_norm"]),
+               gold["grad_norms"][step], 1e-4, "grad_norm")
+    counts = ops.launch_counts()
+    if sorted(gold["leaf_norms"]) != sorted(masters):
+        fail(f"[{tag}] the golden's leaves are not the masters'")
+    for n, t in masters.items():
+        within(f"the norm of {n}",
+               float(torch.linalg.vector_norm(t.detach().double())),
+               gold["leaf_norms"][n], 1e-5, "leaf")
+    L, steps = cfg.num_layers, gold["steps"]
+    want = {n: 0 for n in counts}
+    if force is None:
+        want["flash_attention"], want["flash_attention_bwd"] = \
+            2 * L * steps, L * steps
+    if counts != want:
+        fail(f"[{tag}] the golden run ({force or 'kernels'}) launched "
+             f"{counts}; expected {want}")
+    print(f"[{tag}] train golden ({force or 'K5 + K7'}): {steps} AdamW "
+          f"steps at full width, {L} layers, f32: losses "
+          f"{[round(x, 6) for x in gold['losses']]} held; largest relative "
+          f"gaps: loss {worst['loss']:.2e} (bar 1e-5), grad_norm "
+          f"{worst['grad_norm']:.2e} (bar 1e-4), leaf norms "
+          f"{worst['leaf']:.2e} (bar 1e-5); launches {counts}", flush=True)
+    del masters, state
+    return counts
+
+
+def train_bf16_pair(tag):
+    """Phase 29's bf16 pair: StarCoder2-3B at its published width, 2
+    layers, bf16 on f32 masters from `numpy_params(seed=0)`, one batch
+    of the main path's shape: the loss and every gradient leaf's norm
+    with K5 + K7 against the plain attention (loss within 2e-2, norms
+    rtol 2e-2)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(ATTN_ARCH), num_layers=2)
+    params, _ = lm.numpy_params(cfg, seed=0)
+    masters = lm.masters_from_reference(params, cfg, device="cuda")
+    del params
+    t = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        device="cuda").batch(0)["tokens"]
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    model = lm.skeleton(cfg)
+    out = {}
+    for force in (None, "ref"):
+        loss = lm.forward_train_loss(model, masters, batch, force=force)
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        out[force] = (float(loss.detach()), [float(
+            torch.linalg.vector_norm(g.double())) for g in grads])
+        del grads
+    (lk, nk), (lr_, nr) = out[None], out["ref"]
+    gap = max(abs(a - b) / b for a, b in zip(nk, nr))
+    print(f"[{tag}] bf16 pair at full width, 2 layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: loss {lk:.6f} with K5 + K7, {lr_:.6f} plain "
+          f"(gap {abs(lk - lr_):.2e}, bar 2e-2); gradient leaf norms within "
+          f"{gap:.2e} relative (bar 2e-2)", flush=True)
+    if abs(lk - lr_) > 2e-2 or gap > 2e-2:
+        fail(f"[{tag}] the bf16 pair differs past its bar")
+    del masters
+
+
+def train_restart(tag):
+    """Phase 29's restart check, `test_checkpoint_restart_bitwise` on the
+    card at the smoke config: 20 steps with a checkpoint every 6, the
+    one at 18 deleted, resume from 12; the losses after the resume equal
+    the uninterrupted run's at rtol 1e-6."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import train
+
+    d = tempfile.mkdtemp(prefix="saath_train_ckpt_")
+    try:
+        kw = dict(steps=20, smoke=True, batch=4, seq=64, ckpt_dir=d,
+                  ckpt_every=6, log_every=1000, coflow_plan=False,
+                  device="cuda")
+        full = train(ATTN_ARCH, **kw)
+        if latest_step(d) != 18:
+            fail(f"[{tag}] the restart run's latest step is "
+                 f"{latest_step(d)}, not 18")
+        shutil.rmtree(f"{d}/step_{18:08d}")   # the crash
+        resumed = train(ATTN_ARCH, **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    a, b = np.asarray(resumed["losses"]), np.asarray(full["losses"][12:])
+    gap = float(np.max(np.abs(a - b) / np.abs(b))) if a.shape == b.shape \
+        else float("inf")
+    print(f"[{tag}] restart at the smoke config: resumed at step 12, "
+          f"final step {resumed['final_step']}, losses within {gap:.2e} "
+          f"relative of the uninterrupted run's (bar 1e-6)", flush=True)
+    if resumed["final_step"] != 20 or gap > 1e-6:
+        fail(f"[{tag}] the resumed losses {a.tolist()} are not the "
+             f"uninterrupted run's {b.tolist()}")
+
+
+def train_phase(tag):
+    """Phase 29: K7 against its plain version at every width pair and
+    at the train shapes; the train golden with the kernels and with the
+    plain attention; the main train path (StarCoder2-3B at its published
+    width, bf16 on f32 masters, AdamW, `TRAIN_STEPS` steps of
+    `TRAIN_BATCH` x `TRAIN_SEQ` tokens with the coflow plan), counters
+    set to 0 just before and read just after; the bf16 pair; the restart.
+    Returns (K7's record for the kernels line, the main path's launch
+    counts)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import WIDTHS
+    from repro_torch.launch.train import train
+
+    layers = get_config(ATTN_ARCH).num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    worst = {}
+    for D, Dv in WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for B, H, Hkv, S, T, qo in K7_CASES:
+                    shape = (B, H, Hkv, S, T, D, Dv, qo)
+                    _, err, rel = k7_check(tag, shape, dtype, dev, causal)
+                    key = f"({D}, {Dv}) {str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+    print(f"[{tag}] K7 within its bars at every width pair, causal and "
+          f"not, q_offset 0 and a chunk against T > S; largest error of "
+          f"the largest gradient: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    shapes = [k7_shape_record(tag, shape, dtype, dev, what)
+              for shape, what in ((K7_TRAIN, "StarCoder2-3B's train shape"),
+                                  (K7_MLA, "DeepSeek-V2's MLA shape"))
+              for dtype in (torch.float32, torch.bfloat16)]
+
+    for force in (None, "ref"):
+        train_golden(tag, force)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main train path
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train(ATTN_ARCH, smoke=False, device="cuda", batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS, coflow_plan=True,
+                log_every=5)
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"[{tag}] the train path's losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first - 0.05:
+        fail(f"[{tag}] the loss did not fall by the reference's bar: mean "
+             f"of the first 5 {first:.4f}, of the last 5 {last:.4f}")
+    plan = out["plan_launches"]
+    per_step = {n: (counts[n] - plan[n]) / TRAIN_STEPS for n in counts}
+    want = {n: 0 for n in counts}
+    want["flash_attention"] = 2 * layers
+    want["flash_attention_bwd"] = layers
+    if per_step != want or plan["flash_attention"] or \
+            plan["flash_attention_bwd"] or not plan["contention"]:
+        fail(f"[{tag}] the train path launched {counts} (the plan "
+             f"{plan}); expected a step to launch {want}")
+    ms = 1e3 * float(np.median(out["step_seconds"][1:]))
+    ms0 = 1e3 * out["step_seconds"][0]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[{tag}] train main path: StarCoder2-3B at its published width, "
+          f"{layers} layers, bf16 on f32 masters, AdamW, "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first "
+          f"5 {first:.4f}, of the last 5 {last:.4f}); {ms:.1f} ms a step "
+          f"(median after the first; the first {ms0:.1f} ms), "
+          f"{tokens / ms * 1e3:.1f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it held by "
+          f"earlier phases); wall {wall:.1f} s; launches a step "
+          f"{ {n: v for n, v in per_step.items() if v} }, the plan's "
+          f"{ {n: v for n, v in plan.items() if v} }; "
+          f"{len(out['plan'])} waves, the first {out['plan'][:2]}; "
+          f"stragglers {len(out['straggler_events'])}; {smi()}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "--profile" in sys.argv[1:]:
+        profile_train()
+        gc.collect()
+
+    train_bf16_pair(tag)
+    train_restart(tag)
+
+    main = next(r for r in shapes if r["dtype"] == "bfloat16")
+    rec = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/attention.py:28",
+           "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+           "shapes": shapes,
+           "train": {"ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+                     "peak_bytes": peak, "layers": layers,
+                     "losses": losses}}
+    return rec, counts
+
+
 def _guard(fn):
     """`fn()` inside `assert_no_transfers()`."""
     from repro_torch.analysis.sanitize import assert_no_transfers
@@ -3497,6 +3992,10 @@ def main():
               "flash_attention", numpy_weights=False)
     lap("28")
 
+    # ---- 29. training: K7, the train golden, StarCoder2-3B at full width
+    k7, tcounts = train_phase("29")
+    lap("29")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
@@ -3505,7 +4004,7 @@ def main():
              "figures": fcounts, "bridge": bcounts, "analysis": ancounts,
              "qwen3_moe": moe_counts["qwen3-moe-235b-a22b"],
              "deepseek_v2": moe_counts["deepseek-v2-236b"],
-             "jamba": moe_counts["jamba-v0.1-52b"]}
+             "jamba": moe_counts["jamba-v0.1-52b"], "train": tcounts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
@@ -3559,6 +4058,8 @@ def main():
          "launches_by_path": by_path["prefix_sum"],
          "rows": total["prefix_sum_rows"],
          "rows_by_path": by_path["prefix_sum_rows"]},
+        {**k7, "launches": total["flash_attention_bwd"],
+         "launches_by_path": by_path["flash_attention_bwd"]},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

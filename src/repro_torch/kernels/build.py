@@ -41,6 +41,8 @@ SOURCES = {
     "ssd_scan": ("ssd_scan.cu", []),
     # attention is held to a float tolerance too
     "flash_attention": ("flash_attention.cu", []),
+    # its backward (K7) likewise
+    "flash_attention_bwd": ("flash_attention_bwd.cu", []),
     # the prefix sums' adds are all __fadd_rn: exact whatever the flags
     "prefix_sum": ("prefix_sum.cu", []),
 }

@@ -23,11 +23,13 @@ import torch
 
 from repro_torch.kernels import contention as _contention
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import maxmin as _maxmin
 from repro_torch.kernels import prefix_sum as _prefix
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import walk as _walk
 from repro_torch.kernels.ref import (WalkFlows, contention_ref,
+                                     flash_attention_bwd_ref,
                                      flash_attention_ref, maxmin_ref,
                                      prefix_sum_ref, ssd_chunked_ref,
                                      tick_walk_ref)
@@ -129,6 +131,24 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
+@_boundary("flash_attention_bwd")
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        q_offset: int = 0, force: Optional[str] = None):
+    """The gradient of `flash_attention` at (q, k, v) for the output
+    gradient do, given its output o: (dq, dk, dv) in the inputs' dtype
+    (see `ref.flash_attention_bwd_ref`); on CUDA the kernel K7, built
+    for the pairs of `flash_attention.WIDTHS`, each gradient laid out
+    like its input."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, not {q_offset}")
+    if _use_kernel(q, force):
+        return _flash_bwd.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                   causal=causal,
+                                                   q_offset=q_offset)
+    return flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                   q_offset=q_offset)
+
+
 @_boundary("prefix_sum")
 def prefix_sum(x, *, force: Optional[str] = None):
     """(B, F) f32 -> (B, F + 1) f32: a zero column, then each row's
@@ -148,6 +168,7 @@ def launch_counts() -> dict:
             "maxmin": _maxmin.launches,
             "ssd_scan": _ssd.launches,
             "flash_attention": _flash.launches,
+            "flash_attention_bwd": _flash_bwd.launches,
             "prefix_sum": _prefix.launches,
             "prefix_sum_rows": _prefix.rows}
 
@@ -158,10 +179,11 @@ def reset_launches() -> None:
     _maxmin.launches = 0
     _ssd.launches = 0
     _flash.launches = 0
+    _flash_bwd.launches = 0
     _prefix.launches = 0
     _prefix.rows = 0
 
 
 __all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",
-           "flash_attention", "prefix_sum", "WalkFlows", "launch_counts",
-           "reset_launches"]
+           "flash_attention", "flash_attention_bwd", "prefix_sum",
+           "WalkFlows", "launch_counts", "reset_launches"]

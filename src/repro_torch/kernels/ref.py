@@ -381,19 +381,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys at or past T and, under `causal`, keys after q_offset + i
     (query i's absolute position) are set to -1e30; the running max m,
     sum l and accumulator (Dv wide); o = acc / max(l, 1e-30). Returns
-    (B, H, S, Dv) in q's dtype."""
+    (B, H, S, Dv) in q's dtype. (f64 inputs are computed in f64, for
+    gradient checks.)"""
     B, H, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
-    f32 = torch.float32
+    ct = _compute_dtype(q)
     scale = 1.0 / (D ** 0.5)
-    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(f32)
+    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(ct)
     q_pos = q_offset + torch.arange(S, device=q.device)
-    m = torch.full((B, Hkv, H // Hkv, S), NEG_INF, dtype=f32,
+    m = torch.full((B, Hkv, H // Hkv, S), NEG_INF, dtype=ct,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros(B, Hkv, H // Hkv, S, Dv, dtype=f32, device=q.device)
+    acc = torch.zeros(B, Hkv, H // Hkv, S, Dv, dtype=ct, device=q.device)
     for j in range(0, T, block):
-        kb, vb = k[:, :, j:j + block].to(f32), v[:, :, j:j + block].to(f32)
+        kb, vb = k[:, :, j:j + block].to(ct), v[:, :, j:j + block].to(ct)
         s = torch.einsum("bhgsd,bhtd->bhgst", qg, kb) * scale
         if causal:
             k_pos = j + torch.arange(kb.shape[2], device=q.device)
@@ -407,6 +408,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, S, Dv).to(q.dtype)
+
+
+def _compute_dtype(q: torch.Tensor) -> torch.dtype:
+    """f32, or f64 for f64 inputs (the attention's plain versions)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            q_offset: int = 0):
+    """The gradient of `flash_attention_ref` written out: (dq, dk, dv)
+    at (q, k, v) for the output gradient `do`, given the forward's
+    output o (B, H, S, Dv). In f32 (f64 for f64 inputs), with s and its
+    mask as the forward forms them, p = exp(s - max) / max(sum, 1e-30)
+    over each query's keys:
+
+        dv = p^T do (summed over the G query heads of each KV head)
+        dp = do v^T,  delta = rowsum(do o),  ds = p (dp - delta)
+        dq = ds k D^-1/2,  dk = ds^T q D^-1/2 (summed as dv)
+
+    Returns the three in the dtypes of q, k and v (the kernel K7's
+    contract; `flash_attention_bwd.py`)."""
+    B, H, S, D = q.shape
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    ct = _compute_dtype(q)
+    scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, G, S, D).to(ct)
+    og = o.reshape(B, Hkv, G, S, Dv).to(ct)
+    dog = do.reshape(B, Hkv, G, S, Dv).to(ct)
+    kf, vf = k.to(ct), v.to(ct)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg, kf) * scale
+    if causal:
+        q_pos = q_offset + torch.arange(S, device=q.device)
+        k_pos = torch.arange(T, device=q.device)
+        s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dog)
+    dp = torch.einsum("bhgsd,bhtd->bhgst", dog, vf)
+    ds = p * (dp - (dog * og).sum(-1, keepdim=True))
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qg) * scale
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 PREFIX_BLOCK = 16   # XLA's scan block on the CPU (jnp.cumsum)
@@ -450,6 +497,6 @@ def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["BIG", "NEG_INF", "PREFIX_BLOCK", "WalkFlows", "attention_ref",
-           "contention_ref", "flash_attention_ref", "maxmin_ref",
-           "maxmin_rounds", "prefix_sum_ref", "ssd_chunked_ref", "ssd_ref",
-           "tick_walk_ref"]
+           "contention_ref", "flash_attention_bwd_ref", "flash_attention_ref",
+           "maxmin_ref", "maxmin_rounds", "prefix_sum_ref", "ssd_chunked_ref",
+           "ssd_ref", "tick_walk_ref"]

@@ -1,14 +1,19 @@
-"""Serve steps of the port: build the model, prefill, decode.
+"""Steps of the port: build the model, prefill, decode, and the train
+step.
 
-The counterpart of the serving part of `repro.launch.steps`
-(`materialize_model`, `make_prefill_step`, `make_decode_step`). There is
-no sharding and no `jit`: PyTorch runs the steps eagerly on one device,
-for every decoder-only stack `models.lm` builds (Mamba, GQA and MLA
-mixers; dense, MoE or no FFN).
+The counterpart of `repro.launch.steps` (`materialize_model`,
+`make_prefill_step`, `make_decode_step`, `make_train_step`). There is no
+sharding and no `jit`: PyTorch runs the steps eagerly on one device, for
+every decoder-only stack `models.lm` builds (Mamba, GQA and MLA mixers;
+dense, MoE or no FFN); the train step for every stack without a Mamba
+mixer (ROADMAP queue A item 11e-ii brings those).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional
+
+import torch
 
 from repro_torch.fabric.engine import resolve_device
 from repro_torch.models import lm
@@ -38,4 +43,50 @@ def make_decode_step(model: lm.DecoderLM):
     return decode_step
 
 
-__all__ = ["materialize_model", "make_prefill_step", "make_decode_step"]
+def make_train_step(cfg, optimizer, *, force: Optional[str] = None):
+    """train_step(params, opt_state, step, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "step"}): the loss and the gradients of the
+    f32 masters `params` (`lm.forward_train_loss` under
+    `torch.autograd`), then `optimizer.update` (which writes params and
+    opt_state in place). With `cfg.train_microbatches` k > 1 the batch
+    splits into k row blocks; the gradients accumulate as the
+    reference's scan does (zeros, plus each microbatch's in turn) and
+    the loss and gradients are divided by k. `force="ref"` pins the
+    plain attention forward and backward."""
+    lm.check_trainable(cfg)
+    k = max(cfg.train_microbatches, 1)
+    model = lm.skeleton(cfg)
+
+    def value_and_grad(params, batch):
+        loss = lm.forward_train_loss(model, params, batch, force=force)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), OrderedDict(zip(params, grads))
+
+    def train_step(params, opt_state, step, batch):
+        if k == 1:
+            loss, grads = value_and_grad(params, batch)
+        else:
+            loss = 0.0
+            grads = OrderedDict((n, torch.zeros_like(p, requires_grad=False))
+                                for n, p in params.items())
+            for i in range(k):
+                mb = {n: t.reshape((k, t.shape[0] // k) + t.shape[1:])[i]
+                      for n, t in batch.items()}
+                l_i, g_i = value_and_grad(params, mb)
+                loss = loss + l_i
+                for n, g in g_i.items():
+                    grads[n].add_(g)
+            loss = loss / k
+            for g in grads.values():
+                g.div_(k)
+        params, opt_state, info = optimizer.update(grads, opt_state, params,
+                                                   step)
+        return params, opt_state, {"loss": loss,
+                                   "grad_norm": info["grad_norm"],
+                                   "step": step + 1}
+
+    return train_step
+
+
+__all__ = ["materialize_model", "make_prefill_step", "make_decode_step",
+           "make_train_step"]

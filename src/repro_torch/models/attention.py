@@ -25,6 +25,14 @@ head_dim + rope_head_dim (192) and a value width of head_dim (128);
 decode is the reference's absorbed form against the latent cache, plain
 tensor code.
 
+For training (`lm.forward_train_loss`) the prefill call runs under
+autograd: `attend` wraps it in `FlashAttention`, an autograd function
+whose forward is the same `ops.flash_attention` call (K5 on the card)
+and whose backward is `ops.flash_attention_bwd` (K7 on the card, the
+plain `ref.flash_attention_bwd_ref` on the CPU; `force="ref"` pins the
+plain versions of both). With no input requiring a gradient (serving,
+under `inference_mode`) `attend` is the plain call.
+
 Cache layout per layer: {"k", "v": (B, max_len, Hkv, Dh)} for GQA,
 {"ckv": (B, max_len, kv_lora_rank), "krope": (B, max_len,
 rope_head_dim)} for MLA, in the compute dtype. Cross attention (ROADMAP
@@ -39,6 +47,40 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamInit, rms_norm, rope
+
+
+class FlashAttention(torch.autograd.Function):
+    """`ops.flash_attention` with its gradient: forward the kernel (K5
+    on CUDA), backward `ops.flash_attention_bwd` (K7 on CUDA) from the
+    saved q, k, v and o; `force` pins both paths, as in `ops`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int,
+                force: Optional[str]):
+        o = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                force=force)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.q_offset, ctx.force = causal, q_offset, force
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(
+            q, k, v, o, do, causal=ctx.causal, q_offset=ctx.q_offset,
+            force=ctx.force)
+        return dq, dk, dv, None, None, None
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           force: Optional[str] = None) -> torch.Tensor:
+    """Causal prefill attention from position 0 (the layout of
+    `ops.flash_attention`): through `FlashAttention` when autograd
+    records and an input requires a gradient, else the plain call."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, True, 0, force)
+    return ops.flash_attention(q, k, v, causal=True, force=force)
 
 
 def gqa_init(init: ParamInit, cfg) -> dict:
@@ -121,9 +163,8 @@ class GQAAttention(nn.Module):
                 cache["k"][:, :S] = k
                 cache["v"][:, :S] = v
                 k, v = cache["k"][:, :S], cache["v"][:, :S]
-            o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal=True,
-                                    force=force).transpose(1, 2)
+            o = attend(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), force=force).transpose(1, 2)
         return o.reshape(B, S, H * Dh) @ self.wo.flatten(0, 1), cache
 
 
@@ -199,9 +240,8 @@ class MLAAttention(nn.Module):
             k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)],
                           dim=-1)
             qf = torch.cat([q_nope, q_rope], dim=-1)
-            o = ops.flash_attention(qf.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), causal=True,
-                                    force=force).transpose(1, 2)
+            o = attend(qf.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), force=force).transpose(1, 2)
         return o.reshape(B, S, H * dn) @ self.wo.flatten(0, 1), cache
 
     def _absorbed(self, q_nope, q_rope, ckv, krope, dtype):
@@ -223,5 +263,5 @@ class MLAAttention(nn.Module):
                             self.wv_b.to(f32)).to(dtype)
 
 
-__all__ = ["GQAAttention", "MLAAttention", "decode_attend", "gqa_init",
-           "mla_init"]
+__all__ = ["FlashAttention", "GQAAttention", "MLAAttention", "attend",
+           "decode_attend", "gqa_init", "mla_init"]

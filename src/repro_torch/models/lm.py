@@ -26,18 +26,32 @@ Differences of form from the reference, none of substance:
 first fills the reference's parameter tree (leading dense layers under
 "prefix", the periodic layers stacked by their offset in the period
 under "offsets") from numpy, the second loads such a tree (from either)
-into the port.
+into the port; `reference_leaves` maps any tree of that shape (weights,
+gradients, AdamW's moments) to the port's leaf names.
+
+Training (`forward_train_loss`, the reference's `forward_train_loss`)
+keeps the weights as f32 masters, an ordered dict by the names of the
+model's parameters (`init_masters`, `masters_from_reference`), and
+casts them to the compute dtype inside the loss (the reference's
+`cast_params`), so that the gradients reach the masters through the
+cast. The layers run through `torch.func.functional_call` on a model
+skeleton whose own parameters are never read (`skeleton`, on the meta
+device); the serving model, its frozen parameters and its forward stay
+as they are.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -323,6 +337,204 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
                      None if head is None else t(head), layers)
 
 
+# ---------------------------------------------------------------- training
+_TRAIN = "11e-ii (K4's backward, Mamba2-1.3B and Jamba training)"
+
+
+class _MetaInit:
+    """`ParamInit`'s interface on the meta device: shapes, no storage."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+
+    def embed(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype, device="meta")
+
+    def dense(self, shape, fan_in: int) -> torch.Tensor:
+        return self.embed(shape)
+
+    zeros = embed
+
+
+def skeleton(cfg) -> DecoderLM:
+    """The model's structure on the meta device (no storage): what
+    `forward_train_loss` runs its layers through, with the parameters
+    it is given."""
+    sigs = layer_plan(cfg, cfg.num_layers, False)
+    _check_plan(cfg, sigs)
+    init = _MetaInit(compute_dtype(cfg.dtype))
+    d = cfg.d_model
+    head = None if cfg.tie_embeddings else init.dense((d, cfg.vocab_size),
+                                                      fan_in=d)
+    return DecoderLM(cfg, init.embed((cfg.vocab_size, d)), init.zeros((d,)),
+                     head, [_init_layer(init, cfg, sig) for sig in sigs])
+
+
+def param_names(cfg) -> list:
+    """The model's parameter names in order ("embed", "ln_f", "head",
+    "layers.<l>.<sub>.<leaf>")."""
+    return [n for n, _ in skeleton(cfg).named_parameters()]
+
+
+def check_trainable(cfg) -> None:
+    """Raise `NotImplementedError` for a plan with a Mamba mixer: K4 has
+    no backward yet (ROADMAP queue A item 11e-ii)."""
+    if any(mixer == "mamba" for mixer, _, _ in
+           layer_plan(cfg, cfg.num_layers, False)):
+        raise NotImplementedError(
+            f"{cfg.name}: training a Mamba mixer needs the SSD scan's "
+            f"backward, not ported yet (ROADMAP queue A item {_TRAIN})")
+
+
+def init_masters(cfg, *, seed: int = 0, device="cpu") -> OrderedDict:
+    """f32 master weights drawn as `init_model` draws them (a
+    `torch.Generator` seeded with `seed` on `device`), by parameter
+    name, each requiring its gradient."""
+    model = init_model(dataclasses.replace(cfg, dtype="float32"), seed=seed,
+                       device=device)
+    return OrderedDict((n, p.detach().requires_grad_(True))
+                       for n, p in model.named_parameters())
+
+
+def _reference_slot(cfg, name: str):
+    """(path of keys into the reference tree, index along the stacked
+    leaf or None) of port leaf `name`."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return parts, None
+    l, pre_n, p = int(parts[1]), cfg.first_dense_layers, period(cfg)
+    if l < pre_n:
+        return ["decoder", "prefix", l] + parts[2:], 0
+    return (["decoder", "offsets", (l - pre_n) % p] + parts[2:],
+            (l - pre_n) // p)
+
+
+def reference_leaves(tree, cfg, names=None) -> OrderedDict:
+    """Any tree shaped like the reference's parameters (its weights,
+    their gradients, AdamW's "m" or "v"; `numpy_params`' layout) as the
+    port's leaves: {name: the slice of the reference leaf that holds
+    it}, in the order of `param_names(cfg)` (or `names`)."""
+    out = OrderedDict()
+    for n in names or param_names(cfg):
+        path, g = _reference_slot(cfg, n)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[n] = leaf if g is None else leaf[g]
+    return out
+
+
+def reference_groups(cfg, names=None) -> OrderedDict:
+    """{reference leaf path ("decoder.offsets.0.ln1", ...): the port
+    leaves stacked along its leading axis, in order}, for every layer
+    leaf: what Adafactor factors together (`optim.adafactor`)."""
+    groups = OrderedDict()
+    for n in names or param_names(cfg):
+        path, g = _reference_slot(cfg, n)
+        if g is not None:
+            groups.setdefault(".".join(map(str, path)), []).append(n)
+    return groups
+
+
+def masters_from_reference(params, cfg, *, device="cpu") -> OrderedDict:
+    """f32 masters holding a reference parameter tree's weights
+    (`numpy_params`' or `repro.models.lm.init_model`'s), each requiring
+    its gradient."""
+    return OrderedDict(
+        (n, torch.tensor(np.asarray(a, np.float32), device=device)
+         .requires_grad_(True))
+        for n, a in reference_leaves(params, cfg).items())
+
+
+def _layer(layer, w, x, positions, force):
+    return torch.func.functional_call(
+        layer, w, (x,), {"positions": positions, "force": force},
+        strict=True)[0]
+
+
+def _head_chunk(x, head, labels):
+    """(sum of -log p(label), sum of logz^2) over a chunk of rows: the
+    head product in the compute dtype, the softmax in f32."""
+    logits = (x @ head).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (logz - gold).sum(), (logz * logz).sum()
+
+
+def _train_chunk(cfg, B: int, S: int, chunk: int = 512) -> int:
+    """Rows of one head chunk: the reference's adaptive rule on one
+    device (an f32 logits chunk of at most ~256 MB, at least 16 rows,
+    the nearest divisor of S at or below)."""
+    per_tok = B * cfg.vocab_size * 4
+    chunk = max(16, min(chunk, int(256e6 // max(per_tok, 1))))
+    nchunk = max(1, S // chunk)
+    while S % nchunk:
+        nchunk += 1
+    return S // nchunk
+
+
+def forward_train_loss(model: DecoderLM, params, batch, *,
+                       force: Optional[str] = None, chunk: int = 512):
+    """The train loss of batch {"tokens", "labels"} (B, S): the stack,
+    the final norm, then the head and softmax cross-entropy per chunk of
+    `_train_chunk` rows, never the whole (B, S, V) logits; mean NLL plus
+    the z-loss 1e-4 mean(logz^2). `params` are the f32 masters (any
+    dict by `param_names`), cast to the compute dtype here; `model` any
+    model of the config (its own parameters are not read: `skeleton`).
+    Under `cfg.remat` other than "none" each layer and each head chunk
+    runs under `torch.utils.checkpoint` (non-reentrant), recomputed in
+    the backward. The attention runs through `attention.attend` (K5
+    forward, K7 backward on the card; `force` pins the plain
+    versions)."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    dt = compute_dtype(cfg.dtype)
+    w = {n: p.to(dt) if p.is_floating_point() else p
+         for n, p in params.items()}
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None]
+    remat = cfg.remat != "none"
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+
+    x = w["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * math.sqrt(cfg.d_model)
+    for l, layer in enumerate(model.layers):
+        pre = f"layers.{l}."
+        lw = {n[len(pre):]: t for n, t in w.items() if n.startswith(pre)}
+        x = run(_layer, layer, lw, x, positions, force)
+    x = rms_norm(x, w["ln_f"])
+    head = w["embed"].T if cfg.tie_embeddings else w["head"]
+    chunk = _train_chunk(cfg, B, S, chunk)
+    nll = zl = 0.0
+    for c0 in range(0, S, chunk):
+        a, b = run(_head_chunk, x[:, c0:c0 + chunk], head,
+                   labels[:, c0:c0 + chunk])
+        nll, zl = nll + a, zl + b
+    n = B * S
+    return nll / n + 1e-4 * zl / n
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None):
+    """Mean softmax cross-entropy of full logits (B, S, V) against
+    targets (B, S), plus the z-loss, over the positions where `mask`
+    (default all) is nonzero; the reference's `lm_loss`."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    zloss = 1e-4 * ((logz * mask) ** 2).sum() / denom
+    return loss + zloss
+
+
 # ------------------------------------------------------------ entry points
 def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed[tokens]
@@ -396,6 +608,9 @@ def forward_decode(model: DecoderLM, tokens: torch.Tensor, cache,
     return lm_logits(model, x), new
 
 
-__all__ = ["DecoderLM", "embed_tokens", "forward_decode",
-           "forward_prefill", "from_reference", "init_cache", "init_model",
-           "layer_plan", "lm_logits", "numpy_params", "period"]
+__all__ = ["DecoderLM", "check_trainable", "embed_tokens",
+           "forward_decode", "forward_prefill", "forward_train_loss",
+           "from_reference", "init_cache", "init_masters", "init_model",
+           "layer_plan", "lm_logits", "lm_loss", "masters_from_reference",
+           "numpy_params", "param_names", "period", "reference_groups",
+           "reference_leaves", "skeleton"]

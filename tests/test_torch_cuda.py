@@ -1,12 +1,14 @@
 """The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
-K4 SSD scan, K5 attention, K6 prefix sums) against their plain PyTorch versions, on the
+K4 SSD scan, K5 attention, K6 prefix sums, K7 the attention backward)
+against their plain PyTorch versions, on the
 card (learned-size ticks among them), the replays, pools and a small
 `CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
 serve with K4 against the plain path, a 2-layer full-width
 StarCoder2 serve through K5 against the JAX package's golden, K5 at
 MLA's widths (192, 128), K4 at Jamba's state width 16, the SMOKE MoE,
 MLA and hybrid sessions against their plain paths, and the
-runtime bridge (its wave plan, an NCCL world of 1). Every
+runtime bridge (its wave plan, an NCCL world of 1), and a SMOKE
+StarCoder2 train step through K5 and K7 against the plain path. Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
 
@@ -1574,3 +1576,85 @@ def test_scheduled_psum_over_an_nccl_world_of_one(cuda):
         dist.destroy_process_group()
     for a, b in zip(out, flat):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ---- training: K7 (the attention backward) and a train step -------------
+
+K7_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(16, 16), (32, 32), (64, 64),
+                                    (128, 128), (192, 128)])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, widths, dtype,
+                                                  causal):
+    """K7 against `flash_attention_bwd_ref` on the card at every (D, Dv)
+    pair K5 is built for, on transposed (B, S, H, D) views, q_offset 0
+    and a chunk against T > S: each gradient within 1e-5 (f32) or 2e-2
+    (bf16) of its largest magnitude, laid out like its input, one call
+    counted per backward."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda)
+
+    D, Dv = widths
+    rng = np.random.default_rng(D + Dv)
+    for B, H, Hkv, S, T, qo in ((2, 4, 2, 70, 70, 0),
+                                (1, 2, 1, 37, 150, 113)):
+        q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(
+            np.float32), device=cuda).to(dtype).transpose(1, 2)
+            for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, Dv),
+                      (B, S, H, Dv)))
+        o = ops.flash_attention(q, k, v, causal=causal, q_offset=qo,
+                                force="ref")
+        before = ops.launch_counts()["flash_attention_bwd"]
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                      q_offset=qo)
+        assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+        want = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       q_offset=qo, force="ref")
+        torch.cuda.synchronize()
+        for g, w, x in zip(got, want, (q, k, v)):
+            assert g.dtype == dtype and g.shape == x.shape
+            assert g.transpose(1, 2).is_contiguous()
+            bar = K7_BAR[dtype] * float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), atol=bar,
+                                       rtol=0)
+    with pytest.raises(ValueError, match="must be one of"):
+        flash_attention_bwd_cuda(q[..., :8], k[..., :8], v, o, do)
+
+
+@pytest.mark.gpu
+def test_train_step_through_k5_and_k7_matches_the_plain_path(cuda):
+    """One train step of the SMOKE StarCoder2 (bf16 on f32 masters) on
+    the card: K5 twice a layer (remat), K7 once, nothing else; its loss
+    and grad norm within 2e-2 of the plain attention's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_smoke_config("starcoder2-3b")
+    t = SyntheticLMData(cfg.vocab_size, 64, 4, device=cuda).batch(0)[
+        "tokens"]
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    out = {}
+    for force in (None, "ref"):
+        masters = lm.init_masters(cfg, seed=0, device=cuda)
+        opt = make_optimizer(cfg, total_steps=2)
+        state = opt.init(masters)
+        ops.reset_launches()
+        _, _, m = ST.make_train_step(cfg, opt, force=force)(
+            masters, state, 0, batch)
+        out[force] = (float(m["loss"]), float(m["grad_norm"]),
+                      ops.launch_counts())
+    (lk, gk, ck), (lr_, gr, cr) = out[None], out["ref"]
+    L = cfg.num_layers
+    assert ck["flash_attention"] == 2 * L and \
+        ck["flash_attention_bwd"] == L
+    assert not any(v for n, v in ck.items()
+                   if n not in ("flash_attention", "flash_attention_bwd"))
+    assert not any(cr.values())
+    assert abs(lk - lr_) < 2e-2 and abs(gk - gr) < 2e-2 * gr
