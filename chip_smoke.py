@@ -325,16 +325,20 @@ same inputs:
    bf16 pair of DeepSeek-V2 at 2 layers (weights from `lm.init_model`),
    the plain attention against K5 (192, 128), logits to atol 0.1;
 29. training (`train_phase`): K7 (the attention backward: softmax
-   statistics, dk and dv, dq; three launches counted as one call)
-   against `flash_attention_bwd_ref` at every (D, Dv) pair of
-   `flash_attention.WIDTHS`, f32 and bf16, causal and not, q_offset 0
-   and a chunk at q_offset 113 against T > S (`K7_CASES`), each
-   gradient within `K7_BAR` of its largest magnitude (1e-5 f32, 2e-2
-   bf16); then at StarCoder2-3B's train shape (4, 24, 2, 2048, 2048,
-   128) and DeepSeek-V2's MLA shape (4, 128, 128, 1000, 1000, 192, 128),
-   f32 and bf16, with its time beside the plain version's, the backward
-   of SDPA through `torch.autograd.grad` (null with the error where no
-   backend takes the shape) and the bound (`k7_bound_ms`); the train
+   statistics, dk and dv, dq, and the head split's sum; three or four
+   launches counted as one call) against `flash_attention_bwd_ref` at
+   every (D, Dv) pair of `flash_attention.WIDTHS`, f32 and bf16, causal
+   and not, q_offset 0 and a chunk at q_offset 113 against T > S
+   (`K7_CASES`), each gradient within `K7_BAR` of its largest magnitude
+   (1e-5 f32, 2e-2 bf16) and a second call bitwise equal to the first;
+   each instance's registers, shared memory and blocks an SM
+   (`k7_resources`); then at StarCoder2-3B's train shape (4, 24, 2,
+   2048, 2048, 128) and DeepSeek-V2's MLA shape (4, 128, 128, 1000,
+   1000, 192, 128), f32 and bf16, with its time beside the plain
+   version's, the backward of SDPA through `torch.autograd.grad` (null
+   with the error where no backend takes the shape), the bound
+   (`k7_bound_ms`) and each gradient's largest difference and
+   magnitude (ROADMAP C14); the train
    golden (`train_golden`, `tests/data/
    torch_port_train_starcoder2_golden.json`, the JAX package on the
    CPU): StarCoder2-3B at its published width, 2 layers, f32, 3 AdamW
@@ -479,9 +483,11 @@ NUMPY_GOLDEN = ROOT / "tests" / "data" / "torch_port_numpy_golden.json"
 HOST_PLANE = ("saath", "aalo", "fifo", "scf", "srtf", "lwtf", "varys-sebf",
               "uc-tcp", "saath-torch")
 # the port's kernels by the names the profiler gives them
+# K7's kernels, both instances (the head split's sum only when it splits)
+K7_KERNELS = ("bwd_stats_sm90<", "bwd_dkdv_sm90<", "bwd_dq_sm90<",
+              "bwd_stats_f32<", "bwd_dkdv_f32<", "bwd_dq_f32<", "bwd_sum<")
 PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
-                "ssd_gram<", "flash_fwd", "prefix_sum_kernel", "bwd_stats<",
-                "bwd_dkdv<", "bwd_dq<")
+                "ssd_gram<", "flash_fwd", "prefix_sum_kernel") + K7_KERNELS
 # phase 21: the reference's pool-throughput gate (benchmarks/
 # pool_throughput.py:236), read here, not gated
 POOL_GATE = 4.0
@@ -782,6 +788,7 @@ def report_profile(prof, wall, steps, unit):
             print(f"[p]   port kernel {e.key[:70]}: "
                   f"{t / steps:.1f} us/{unit} ({t / busy_us:.3f} of busy), "
                   f"{e.count / steps:.1f} launches per {unit}")
+    return rows, busy_us
 
 
 def profile_serve(sess, prompts, n_decode=16):
@@ -827,8 +834,8 @@ def profile_train(warm_steps=2):
     masters, AdamW, `TRAIN_BATCH` x `TRAIN_SEQ` tokens), `warm_steps`
     steps unprofiled, then one step under torch.profiler: its wall time,
     device busy share, the kernels with the most device time and each of
-    the port's kernels (K5 `flash_fwd`, K7 `bwd_*`) with its share of
-    the busy time."""
+    the port's kernels (K5 `flash_fwd`, K7 `K7_KERNELS`) with its share
+    of the busy time, and K7's total a step split by launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -866,7 +873,18 @@ def profile_train(warm_steps=2):
     print(f"[p] train step of {cfg.num_layers} layers, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens, after {warm_steps}: wall {1e3 * wall:.3f} "
           f"ms (profiled)")
-    report_profile(prof, wall, 1, "step")
+    got = report_profile(prof, wall, 1, "step")
+    if got is not None:
+        rows, busy_us = got
+        k7 = [e for e in rows if any(k in e.key for k in K7_KERNELS)]
+        t = sum(e.self_device_time_total for e in k7)
+        print(f"[p] K7 a step: {t / 1e3:.3f} ms, {t / busy_us:.3f} of busy "
+              f"({sum(e.count for e in k7)} kernel launches); by launch: "
+              + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
+                          f"{e.self_device_time_total / busy_us:.3f}"
+                          for e in sorted(k7, key=lambda e:
+                                          -e.self_device_time_total)),
+              flush=True)
     del params, opt_state, step_fn, prof
     torch.cuda.empty_cache()
 
@@ -3110,9 +3128,10 @@ def analysis_phase(tag, fleet, params, leaf):
 
 
 def k7_design_macs(D, Dv):
-    """Multiply-adds a pair that K7's three launches do: the scores in
-    each of the three, do . v in the dk/dv and dq launches, p do, ds q
-    and ds k once."""
+    """Multiply-adds a pair that K7's three launches do (on `wgmma` in
+    bf16, on the CUDA cores in f32): the scores q . k in each of the
+    three (3 D: the stats launch keeps its own), do . v in the dk/dv and
+    dq launches (2 Dv), p do (Dv), ds q and ds k (2 D)."""
     return 5 * D + 3 * Dv
 
 
@@ -3161,8 +3180,9 @@ def k7_inputs(shape, dtype, seed, dev):
 
 def k7_check(tag, shape, dtype, dev, causal=True):
     """K7 at `shape` against its plain version: fails past `K7_BAR` of
-    each gradient's largest magnitude. Returns (inputs, max abs error,
-    max relative error)."""
+    each gradient's largest magnitude, or unless a second call gives the
+    same bits. Returns (inputs, max abs error, max relative error, {name:
+    (max |difference|, max |plain gradient|)})."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3171,13 +3191,17 @@ def k7_check(tag, shape, dtype, dev, causal=True):
     qo = shape[-1]
     got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                   q_offset=qo)
+    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                    q_offset=qo)
     want = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                    q_offset=qo, force="ref")
     torch.cuda.synchronize()
     err = rel = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    per = {}
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
         e = float((g.float() - w.float()).abs().max())
         m = float(w.float().abs().max())
+        per[name] = (e, m)
         err, rel = max(err, e), max(rel, e / max(m, 1e-30))
         bar = K7_BAR[str(dtype)[6:]] * m
         if e > bar or g.dtype != dtype or g.shape != w.shape or not bool(
@@ -3185,7 +3209,20 @@ def k7_check(tag, shape, dtype, dev, causal=True):
             fail(f"[{tag}] K7 disagrees with flash_attention_bwd_ref at "
                  f"{shape} {dtype} causal={causal}: {name} max abs error "
                  f"{e:.3e} (bar {bar:.3e})")
-    return (q, k, v, o, do), err, rel
+        if not torch.equal(g, g2):
+            fail(f"[{tag}] two K7 calls at {shape} {dtype} causal={causal} "
+                 f"gave different {name}")
+    return (q, k, v, o, do), err, rel, per
+
+
+def k7_resources(D, Dv, dtype):
+    """K7's instance at (D, Dv) and `dtype` in words: each launch's
+    registers a thread, shared memory and blocks an SM
+    (`flash_attention_bwd.resources`)."""
+    from repro_torch.kernels.flash_attention_bwd import resources
+
+    return "; ".join(f"{k} {r} registers, {b / 1024:.1f} KB, {n} an SM"
+                     for k, (r, b, n) in resources(D, Dv, dtype).items())
 
 
 def sdpa_bwd_any(q, k, v, do):
@@ -3214,7 +3251,7 @@ def k7_shape_record(tag, shape, dtype, dev, what):
 
     from repro_torch.kernels import ops
 
-    (q, k, v, o, do), err, rel = k7_check(tag, shape, dtype, dev)
+    (q, k, v, o, do), err, rel, per = k7_check(tag, shape, dtype, dev)
     bnd, by, pairs = k7_bound_ms(shape, q.element_size())
     ms = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do), 3)
     plain = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, do,
@@ -3230,13 +3267,17 @@ def k7_shape_record(tag, shape, dtype, dev, what):
           + f", bound {bnd:.4f} ms ({by}; {pairs} unmasked pairs); "
           f"{flop / ms / 1e9:.1f} TFLOP/s of the function's products "
           f"({done / ms / 1e9:.1f} of the {done / flop:.2f}x its three "
-          f"launches do), {bnd / ms:.2%} of the bound; {smi()}", flush=True)
+          f"launches do), {bnd / ms:.2%} of the bound; two calls bitwise "
+          f"equal; max |difference| / max |gradient| "
+          + ", ".join(f"{n} {e:.4e} / {m:.4e}" for n, (e, m) in per.items())
+          + f"; {k7_resources(D, Dv, dtype)}; {smi()}", flush=True)
     del q, k, v, o, do
     torch.cuda.empty_cache()
     return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib, "library_error": lib_err,
-            "max_abs_err": err}
+            "max_abs_err": err,
+            "max_abs": {n: list(em) for n, em in per.items()}}
 
 
 def train_golden(tag, force):
@@ -3419,13 +3460,18 @@ def train_phase(tag):
             for causal in (True, False):
                 for B, H, Hkv, S, T, qo in K7_CASES:
                     shape = (B, H, Hkv, S, T, D, Dv, qo)
-                    _, err, rel = k7_check(tag, shape, dtype, dev, causal)
+                    _, err, rel, _ = k7_check(tag, shape, dtype, dev,
+                                              causal)
                     key = f"({D}, {Dv}) {str(dtype)[6:]}"
                     worst[key] = max(worst.get(key, 0.0), rel)
     print(f"[{tag}] K7 within its bars at every width pair, causal and "
-          f"not, q_offset 0 and a chunk against T > S; largest error of "
-          f"the largest gradient: "
+          f"not, q_offset 0 and a chunk against T > S, two calls bitwise "
+          f"equal; largest error of the largest gradient: "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    for D, Dv in WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"[{tag}] K7 ({D}, {Dv}) {str(dtype)[6:]}: "
+                  f"{k7_resources(D, Dv, dtype)}", flush=True)
     shapes = [k7_shape_record(tag, shape, dtype, dev, what)
               for shape, what in ((K7_TRAIN, "StarCoder2-3B's train shape"),
                                   (K7_MLA, "DeepSeek-V2's MLA shape"))

@@ -1626,6 +1626,34 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, widths, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 24, 2, 2048, 2048, 128, 128),
+                                   (2, 12, 2, 150, 150, 16, 16),
+                                   (2, 12, 2, 150, 150, 32, 32),
+                                   (2, 12, 2, 150, 150, 64, 64),
+                                   (2, 12, 2, 150, 150, 128, 128),
+                                   (2, 12, 2, 150, 150, 192, 128)], ids=str)
+def test_flash_attention_bwd_kernel_is_bitwise_repeatable(cuda, shape,
+                                                           dtype):
+    """Two K7 calls on the same inputs give the same bits of dq, dk and
+    dv: no atomics, and the head split's partials (G = 12 here, split 4
+    ways at StarCoder2-3B's train shape and 3 ways at the small ones) are
+    summed in a fixed order."""
+    B, H, Hkv, S, T, D, Dv = shape
+    rng = np.random.default_rng(S + D)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(
+        np.float32), device=cuda).to(dtype).transpose(1, 2)
+        for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, Dv),
+                  (B, S, H, Dv)))
+    o = ops.flash_attention(q, k, v)
+    first = ops.flash_attention_bwd(q, k, v, o, do)
+    second = ops.flash_attention_bwd(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_train_step_through_k5_and_k7_matches_the_plain_path(cuda):
     """One train step of the SMOKE StarCoder2 (bf16 on f32 masters) on
     the card: K5 twice a layer (remat), K7 once, nothing else; its loss
