@@ -74,8 +74,11 @@ def record(name: str, result: Result, row: int = 0, **extra) -> dict:
                 if (r.get("bench"), r.get("scenario"), r.get("device"),
                     r.get("row")) != key]
     existing.append(rec)
-    with open(BENCH_JSON, "w") as fh:
+    # whole or not at all, when drivers in several processes record
+    tmp = f"{BENCH_JSON}.{os.getpid()}.tmp"
+    with open(tmp, "w") as fh:
         json.dump(existing, fh, indent=1)
+    os.replace(tmp, BENCH_JSON)
     return rec
 
 
@@ -121,6 +124,12 @@ class Bench:
             if record_as:
                 record(record_as, self._cache[key])
         return self._cache[key]
+
+    def add(self, result: Result) -> None:
+        """Cache `result`, a run of its own `result.scenario` made
+        elsewhere (another process), as `run` would have."""
+        sc = result.scenario
+        self._cache[(sc.hash(), str(sc.device))] = result
 
 
 def cli_parser(**kw) -> argparse.ArgumentParser:

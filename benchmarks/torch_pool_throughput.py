@@ -19,8 +19,10 @@ one batched session loop. Three gates, as in the reference:
   calibrated for the default 16 sessions) times faster end to end.
 
 A cold pass of each drive comes first (on the card it pays the kernels'
-first-use builds, printed apart); the walls are the best of two warm
-passes. Records go to BENCH_torch.json (`benchmarks.torch_common`).
+first-use builds, printed apart; `--no-cold` skips it where an earlier
+drive in the same process has built and loaded them); the walls are the
+best of two warm passes. Records go to BENCH_torch.json
+(`benchmarks.torch_common`).
 The reference's `--shards` (a sharded slab) waits for the port's
 sharded pool, and the port's pool has no blocking-dispatch switch.
 
@@ -122,13 +124,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--step", type=float, default=0.25,
                     help="virtual seconds per advance")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-cold", action="store_true",
+                    help="skip the cold passes (the kernels already built "
+                         "and loaded in this process)")
     args = ap.parse_args(argv)
     dev = args.device
 
     traces = _workloads(args.sessions, args.coflows, args.seed)
     built = build.build_seconds
-    _, _, cold_seq = run_sequential(traces, args.step, dev)
-    _, _, cold_pool, _ = run_pool(traces, args.step, dev)
+    cold_seq = cold_pool = float("nan")
+    if not args.no_cold:
+        _, _, cold_seq = run_sequential(traces, args.step, dev)
+        _, _, cold_pool, _ = run_pool(traces, args.step, dev)
     built = build.build_seconds - built
     seq_cct, _, wall_seq = run_sequential(traces, args.step, dev)
     pool_cct, comps, wall_pool, io = run_pool(traces, args.step, dev)

@@ -19,10 +19,12 @@ and the runtime bridge's wave planner and wave-ordered all-reduce, the
 analysis plane's checks of the device step, and last Qwen3-MoE-235B-
 A22B, DeepSeek-V2-236B (MLA) and Jamba-v0.1-52B (the Mamba/attention
 hybrid) served at their published widths with every expert and the
-depth cut, and last StarCoder2-3B trained at its published width
-through `repro_torch.launch.train.train` — and holds each hand-written
-CUDA kernel of those paths against its plain PyTorch version on the
-same inputs:
+depth cut, then StarCoder2-3B trained at its published width
+through `repro_torch.launch.train.train`, and last Gemma-7B, DeepSeek-7B,
+DeepSeek-Coder-33B, Chameleon-34B and the encoder-decoder
+SeamlessM4T-medium served at their published widths and depths — and
+holds each hand-written CUDA kernel of those paths against its plain
+PyTorch version on the same inputs:
 
 1. the card's name and power limit; build the seven kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
@@ -155,11 +157,8 @@ same inputs:
    4.0, "maxmin")` against the same golden, K3 = the event steps; the
    three heaviest captured ticks of the fleet (as phase 6) and of the
    pair (as phase 9, rates bit for bit), each carrying the pilot
-   estimate, with K1-K3 against the plain versions; and
-   `benchmarks/fig_sampling.py`'s jax-plane lanes on fb_like_trace(240,
-   100, seed=0) (known, learned, aalo-like), each within 1% of the
-   golden, learned ahead of aalo-like on avg CCT, and a sweep over
-   [known, learned] whose known row is bit for bit the solo known run;
+   estimate, with K1-K3 against the plain versions (fig_sampling's
+   lanes are held to the same golden in 23);
 19. the serving front door (`server_main_path`): `CoflowServer(
    SchedulerParams(), num_ports=150, max_tenants=8, features=(True,
    True, False, False, True))`, 12 tenants registering in turn
@@ -194,13 +193,17 @@ same inputs:
 21. the port's drivers at their defaults (`drivers_phase`):
    `benchmarks/torch_pool_throughput.py` (its bitwise and single-upload
    gates; the speedup printed beside the reference's 4.0, read and not
-   gated), Table 2's rows (a), (b) and (c) and `torch_api_smoke.py`;
+   gated; `--no-cold`, the kernels built in 1 and loaded by the earlier
+   phases), Table 2's rows (a), (b) and (c) and `torch_api_smoke.py`;
 22. the event-driven host plane (`host_plane_phase`): fb_like_trace(526,
    150, seed=0) through `torch_common.Bench(quick=False).run(p,
    engine="numpy")` on the card for each of the nine registry policies
    (the replays phase 23's fig9 reads from the bench's cache for its
-   host baselines), counters set to 0 just before each replay and read
-   just after: every coflow finished and byte delivered; the eight host
+   host baselines), each in a spawned worker process of its own, all at
+   once beside the CPU replays of saath and lwtf (the walls printed are
+   those of concurrent replays), counters set to 0 just before each
+   replay and read just after: every coflow finished and byte
+   delivered; the eight host
    policies take the golden's steps
    (`tests/data/torch_port_numpy_golden.json`, the JAX package's numpy
    engine on the CPU) with avg CCT within 1e-9 relative, `saath-torch`
@@ -209,8 +212,8 @@ same inputs:
    lwtf and saath-torch (K2 too for saath-torch), 0 for the rest, and no
    other kernel; host<->device bytes a step, wall ms a step and the
    kernel builds printed with the card's name and power limit; saath's
-   and lwtf's replays on the card bit for bit the same process's
-   `device="cpu"` replays; K1 bit for bit its plain version on the five
+   and lwtf's replays on the card bit for bit their `device="cpu"`
+   replays; K1 bit for bit its plain version on the five
    heaviest captured incidences, and its time on the heaviest beside the
    plain version's, one bf16 matmul form's and the bound; Aalo's avg
    and p90 CCT over Saath's;
@@ -222,9 +225,9 @@ same inputs:
    `saath-torch` on the host plane, phase 22's replays, then the
    32-trace fleet with its wall-clock gate at `SAATH_FLEET_MIN_SPEEDUP`,
    default 5.0, over host-only sequential replays), then at `QUICK`
-   (fb_like_trace(240, 100, seed=0), sharing one bench cache as
-   `benchmarks/torch_run.py` does) fig2, fig3, fig10, fig11, fig13,
-   fig14, fig_oversub and fig_sampling; every gate of the reference's
+   (fb_like_trace(240, 100, seed=0)) fig2, fig3, fig10, fig11, fig13,
+   fig14, fig_oversub and fig_sampling at once, each in a spawned
+   worker process on a bench cache of its own; every gate of the reference's
    drivers holds as written (a failed one fails the phase); each
    driver's wall and K1, K2, K6 launches printed; K3, K4, K5 0. Each
    driver runs under `capture_ticks` (every `FIGURE_CAPTURE_EVERY`-th
@@ -237,9 +240,14 @@ same inputs:
    bit for bit phase 4's lane 0 (the same trace and params) and within
    phase 5's 1% of the JAX package's golden; the fleet's batched
    fidelity replay bit for bit a `device="cpu"` replay of the same
-   scenario (steps, CCTs); the QUICK Saath row and fig_sampling's three
-   torch lanes at the JAX package's event counts and within 1% of its
-   avg CCTs (`LEARNED_GOLDEN`'s `fig_sampling`, phase 18's bar). The
+   scenario (steps, CCTs; that CPU replay in a worker process while the
+   other drivers run); the QUICK Saath row and fig_sampling's three
+   torch lanes (known, learned, aalo-like on fb_like_trace(240, 100,
+   seed=0); the driver's gate holds learned ahead of aalo-like) at the
+   JAX package's event counts and within 1% of its avg CCTs
+   (`LEARNED_GOLDEN`'s `fig_sampling`, phase 18's bar), and a sweep
+   over [known, learned] whose known row is bit for bit the driver's
+   known lane. The
    fleet's sequential replays are also timed with Saath's K1 on the
    card, and both walls printed;
 24. the runtime bridge (`bridge_phase`): `repro_torch.runtime.
@@ -327,7 +335,7 @@ same inputs:
 29. training (`train_phase`): K7 (the attention backward: softmax
    statistics, dk and dv, dq, and the head split's sum; three or four
    launches counted as one call) against `flash_attention_bwd_ref` at
-   every (D, Dv) pair of `flash_attention.WIDTHS`, f32 and bf16, causal
+   every (D, Dv) pair of `flash_attention_bwd.WIDTHS`, f32 and bf16, causal
    and not, q_offset 0 and a chunk at q_offset 113 against T > S
    (`K7_CASES`), each gradient within `K7_BAR` of its largest magnitude
    (1e-5 f32, 2e-2 bf16) and a second call bitwise equal to the first;
@@ -357,7 +365,31 @@ same inputs:
    gradient leaf's norm within rtol 2e-2 of the plain attention's); and
    `test_checkpoint_restart_bitwise` on the card at the smoke config
    (20 steps, a checkpoint every 6, the one at 18 deleted, resumed from
-   12: losses equal at rtol 1e-6).
+   12: losses equal at rtol 1e-6);
+30. the catalog's other dense models and its encoder-decoder
+   (`dense_phase`): K5 at `DENSE_K5`'s shapes (Gemma-7B's prefill (4,
+   16, 16, 1000, 1000, 256) on the (256, 256) instance, causal;
+   SeamlessM4T's encoder (4, 16, 16, 1000, 1000, 64) and its cross
+   attention (4, 16, 16, 16, 1000, 64), non-causal; DeepSeek-Coder-33B's
+   (4, 56, 8, 1000, 1000, 128), G = 7, causal), f32 and bf16, against
+   `flash_attention_ref` (atol 2e-6 f32, 2e-2 bf16) with its time beside
+   the plain version's, SDPA's and the bound (`attention_shape_record`,
+   under K5's `shapes`); as 11 for the five at their published widths, 2
+   layers (SeamlessM4T 2 + 2, with the golden's 2 x 300 frames), f32,
+   against `tests/data/torch_port_<arch>_golden.json` (k/v and
+   cross_k/cross_v cache norms); as 12 for each at its published width
+   and depth in bf16 through `ServeSession(arch, smoke=False)`, one after
+   another, each freed before the next: 4 prompts of 1000 tokens
+   (SeamlessM4T: 4 x 16 decoder tokens against 4 x 1000 frame embeddings,
+   the audio front end's stub) and 64 greedy tokens, K5 = 28, 30, 62, 48
+   and 36 launches per prefill (`DENSE_K5_LAUNCHES`; SeamlessM4T: 12
+   encoder layers, 12 self and 12 cross attentions), every other kernel
+   0; prefill ms, decode ms per token, tokens/s and peak memory, no f32
+   re-run (DeepSeek-Coder-33B and Chameleon-34B fill the card in bf16);
+   then a bf16 pair of each at 4 layers (SeamlessM4T 4 + 4) from
+   `lm.init_model`, the plain attention against K5, logits within C5's
+   0.1, Gemma-7B's (tied embedding) each w within 0.1 + 2^-6 (|w| + the
+   RMS of its row) (ROADMAP C15).
 
 Each phase prints its seconds (`[n] phase seconds`).
 
@@ -365,7 +397,7 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-seventeen main-path runs, split by path in `launches_by_path`; K4's,
+twenty-two main-path runs, split by path in `launches_by_path`; K4's,
 K5's, K6's and K7's records also list further timed shapes under
 `shapes`, K7's the train path's step time under `train`), the
 script's
@@ -381,10 +413,12 @@ each serve path (`profile_serve`) and one profiled warm train step
 step, device busy share, kernel launches and the kernels with the most
 device time.
 """
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -469,7 +503,7 @@ BF16_LOGIT_ATOL = 0.1  # the bf16 logit bar (ROADMAP C5)
 PAIR_STEPS = 8       # teacher-forced decode steps of the bf16 pair
 POOL_DRAIN = 1.0     # seconds a drain advance of phases 16-17 moves
 DELTA_ADVANCES = 200  # one-δ advances of phase 16's budget run
-# phase 18's fig_sampling trace (benchmarks/fig_sampling.py's bench shape)
+# phase 23's fig_sampling sweep trace (fig_sampling.py's bench shape)
 FIG_COFLOWS, FIG_PORTS = 240, 100
 # phase 19: tenants, rows and each tenant's trace depth
 SERVER_TENANTS, SERVER_ROWS, SERVER_COFLOWS = 12, 8, 128
@@ -482,6 +516,9 @@ NEG_ZERO_LENGTHS = (17, 4097, 30016, 65537)
 NUMPY_GOLDEN = ROOT / "tests" / "data" / "torch_port_numpy_golden.json"
 HOST_PLANE = ("saath", "aalo", "fifo", "scf", "srtf", "lwtf", "varys-sebf",
               "uc-tcp", "saath-torch")
+# phase 22's worker processes: its eleven replays (the nine, two on the
+# CPU) are single-threaded host loops, one a core of the card's host
+HOST_WORKERS = 8
 # the port's kernels by the names the profiler gives them
 # K7's kernels, both instances (the head split's sum only when it splits)
 K7_KERNELS = ("bwd_stats_sm90<", "bwd_dkdv_sm90<", "bwd_dq_sm90<",
@@ -506,6 +543,42 @@ BRIDGE_WAVES = [["grad/0", "moe_a2a/0", "ckpt/upload"],
                 ["grad/1", "moe_a2a/1", "kv/migrate"], ["reshard/params"],
                 ["grad/2", "moe_a2a/2"], ["grad/3"], ["grad/4"], ["grad/5"]]
 PLAN_REPS = 20
+# phase 30: the catalog's other dense models and its encoder-decoder,
+# served at their published widths and depths
+DENSE_ARCHS = ("gemma-7b", "deepseek-7b", "deepseek-coder-33b",
+               "chameleon-34b", "seamless-m4t-medium")
+# K5 at their prefill shapes ((B, H, Hkv, S, T, D, Dv, q_offset), causal):
+# Gemma-7B's 256-wide heads, SeamlessM4T's encoder and its cross attention
+# (16 decoder rows against 1000 frames), DeepSeek-Coder-33B's G = 7
+DENSE_K5 = {"Gemma-7B's prefill": ((4, 16, 16, 1000, 1000, 256, 256, 0), True),
+            "SeamlessM4T's encoder": ((4, 16, 16, 1000, 1000, 64, 64, 0),
+                                      False),
+            "SeamlessM4T's cross attention": (
+                (4, 16, 16, 16, 1000, 64, 64, 0), False),
+            "DeepSeek-Coder-33B's prefill (G = 7)": (
+                (4, 56, 8, 1000, 1000, 128, 128, 0), True)}
+# K5 launches a prefill at the published depth (SeamlessM4T: 12 encoder
+# layers, 12 decoder self-attentions, 12 cross attentions)
+DENSE_K5_LAUNCHES = {"gemma-7b": 28, "deepseek-7b": 30,
+                     "deepseek-coder-33b": 62, "chameleon-34b": 48,
+                     "seamless-m4t-medium": 36}
+# the goldens (the JAX package on the CPU, published widths, 2 layers,
+# SeamlessM4T 2 + 2; tests/test_torch_lm_dense.py regenerates them)
+DENSE_GOLDENS = {a: f"torch_port_{a.replace('-', '_')}_golden.json"
+                 for a in DENSE_ARCHS}
+# 4 prompts of 1000 tokens (SeamlessM4T: 16 decoder tokens against 1000
+# frames, the audio front end's stub), 64 greedy tokens; the bf16 pairs'
+# depth
+DENSE_BATCH, DENSE_PROMPT, DENSE_TOKENS = 4, 1000, 64
+SEAMLESS_PROMPT, SEAMLESS_FRAMES = 16, 1000
+DENSE_PAIR_LAYERS = 4
+# a tied embedding's bf16 logit bar beyond C5's 0.1: 2^-6 of (the plain
+# logit's magnitude + its row's RMS) (ROADMAP C15: Gemma's tied
+# unit-normal embedding gives logits of RMS ~sqrt(d_model), the last
+# token's own ~d_model, where C5's 0.1 is under one bf16 step; a
+# logit's error is the hidden state's dotted with the head's row, so it
+# scales with the row's RMS)
+BF16_STEPS_RTOL = 2 ** -6
 # phase 29: training. K7 (the attention backward) at every width pair of
 # K5 on (B, H, Hkv, S, T, q_offset) cases (two heads a KV head, q_offset
 # 0; a chunk at q_offset 113 against T > S; G = 2 with ragged tiles),
@@ -791,10 +864,11 @@ def report_profile(prof, wall, steps, unit):
     return rows, busy_us
 
 
-def profile_serve(sess, prompts, n_decode=16):
+def profile_serve(sess, prompts, n_decode=16, src=None):
     """(`--profile` only) Where the serve path's time goes: one profiled
-    prefill, then `n_decode` profiled decode steps, each with its wall
-    time, device busy share and top kernels."""
+    prefill (of an encoder-decoder's frames `src` too), then `n_decode`
+    profiled decode steps, each with its wall time, device busy share
+    and top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -803,12 +877,15 @@ def profile_serve(sess, prompts, n_decode=16):
     tokens = torch.as_tensor(prompts, device=sess.device)
     B, P = tokens.shape
     with torch.inference_mode():
-        cache = lm.init_cache(sess.cfg, B, sess.max_len, device=sess.device)
+        cache = lm.init_cache(sess.cfg, B, sess.max_len,
+                              src_len=sess.src_len, device=sess.device)
+        if src is not None:
+            src = torch.as_tensor(src, device=sess.device)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            logits, cache = sess.prefill_fn(tokens, cache)
+            logits, cache = sess.prefill_fn(tokens, cache, src)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         print(f"[p] serve prefill {tuple(tokens.shape)}: wall "
@@ -1225,13 +1302,13 @@ def attention_bound_ms(shape, elt, causal=True):
             pairs)
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, causal=True):
     """One PyTorch call computing K5's function on (B, H, S, D) inputs
     (the yardstick `library_ms`; the port never calls it)."""
     import torch
 
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
+        q, k, v, is_causal=causal, enable_gqa=True)
 
 
 def check_tokens(tag, got, want, gaps):
@@ -1260,13 +1337,16 @@ def check_tokens(tag, got, want, gaps):
 
 def expected_launches(cfg):
     """{kernel: launches} of one prefill of `cfg`'s stack: K4 for each
-    Mamba layer, K5 for each GQA or MLA layer, every other kernel 0."""
+    Mamba layer, K5 for each GQA or MLA layer, each cross attention and
+    each encoder layer, every other kernel 0."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 
     want = {n: 0 for n in ops.launch_counts()}
-    for mixer, _, _ in lm.layer_plan(cfg, cfg.num_layers, False):
+    for mixer, _, cross in lm.layer_plan(cfg, cfg.num_layers, True):
         want["ssd_scan" if mixer == "mamba" else "flash_attention"] += 1
+        want["flash_attention"] += cross
+    want["flash_attention"] += cfg.enc_layers if cfg.enc_dec else 0
     return want
 
 
@@ -1278,17 +1358,31 @@ def check_launches(tag, what, counts, cfg):
         fail(f"[{tag}] {what} launched {got}; expected {want}")
 
 
+def golden_src(gold):
+    """A golden's frame embeddings (None without): f32 normals from
+    `default_rng(src_seed)` of its `src_shape`, as
+    `tests/test_torch_lm_dense.py` draws them."""
+    import numpy as np
+
+    if "src_seed" not in gold:
+        return None
+    return np.random.default_rng(gold["src_seed"]).standard_normal(
+        gold["src_shape"], dtype=np.float32)
+
+
 def golden_parity(tag, arch, path, norms):
     """`arch` at its published width, depth (and, for the MoE models,
     routed experts) cut as the golden's `config_cuts` say (its
     `num_layers` alone in the older goldens), f32, weights from
-    `numpy_params(cfg, seed)` served by `ServeSession(model=...)`: its
+    `numpy_params(cfg, seed)` served by `ServeSession(model=...)` (an
+    encoder-decoder with the golden's frames, `golden_src`): its
     prefill launches K4 once per Mamba layer, K5 once per attention
-    layer and no other kernel; top-8 logits within LOGIT_ATOL of the JAX
-    package's numbers in the golden at `path`, tokens equal (the tie
-    rule of `check_tokens`), and the per-layer cache norms (summed in
-    f64) named by `norms` ({golden field: cache key}, over the layers
-    whose cache has the key) to rtol 1e-4."""
+    (encoder and cross attention included) and no other kernel; top-8
+    logits within LOGIT_ATOL of the JAX package's numbers in the golden
+    at `path`, tokens equal (the tie rule of `check_tokens`), and the
+    per-layer cache norms (summed in f64) named by `norms` ({golden
+    field: cache key}, over the layers whose cache has the key) to rtol
+    1e-4."""
     import dataclasses
 
     import numpy as np
@@ -1308,19 +1402,22 @@ def golden_parity(tag, arch, path, norms):
     t_draw = time.perf_counter() - t0
     n_gold = len(gold["tokens"][0])
     B, P = len(gold["prompts"]), len(gold["prompts"][0])
-    sess = ServeSession(arch, batch=B, max_len=P + n_gold,
+    src = golden_src(gold)
+    src_len = 0 if src is None else src.shape[1]
+    sess = ServeSession(arch, batch=B, max_len=P + n_gold, src_len=src_len,
                         model=lm.from_reference(weights, meta, cfg,
                                                 device=dev))
     del weights
     ops.reset_launches()
-    out = list(sess.stream(gold["prompts"], n_gold))
+    out = list(sess.stream(gold["prompts"], n_gold, src))
     check_launches(tag, "the parity run", ops.launch_counts(), cfg)
     logits = [lg.float() for _, lg in out]
     toks = torch.stack([t for t, _ in out], 1)
     with torch.inference_mode():
         _, cache = sess.prefill_fn(
             torch.as_tensor(gold["prompts"], device=dev),
-            lm.init_cache(cfg, B, P, device=dev))
+            lm.init_cache(cfg, B, P, src_len=src_len, device=dev),
+            None if src is None else torch.as_tensor(src, device=dev))
     idx = torch.as_tensor(gold["top8_index"], device=dev)
     top = logits[0].gather(1, idx)
     want = torch.as_tensor(gold["top8_value"], device=dev)
@@ -1365,20 +1462,22 @@ def serve_model(arch, layers, dtype, dev):
 
 
 def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
-                    f32_layers=None):
+                    f32_layers=None, frames=0, f32=True):
     """`ServeSession(arch, ...)` on `serve_model(arch, layers, None)`:
     the published widths in the config's dtype, the published depth
     (`smoke=False`) or a depth cut to `layers`; `batch` prompts of
-    `prompt_len` tokens (numpy `default_rng(1)`) and `n_tokens` greedy
-    tokens, with every launch counter set to 0 just before and read just
-    after: K4 once per Mamba layer and K5 once per attention layer (in
-    the prefill), every other kernel 0, finite logits. Prints prefill
-    ms, decode ms per token, tokens/s and peak device memory, the first
-    step's logit gap to the plain path in the same dtype (and, with
-    `--profile`, `profile_serve`). Then, the model freed, the same
-    session in f32 (at `f32_layers` when given) with the plain prefill
-    path and with the kernels, held to LOGIT_ATOL over the steps with
-    equal histories. Returns the launch counts of the main-path run."""
+    `prompt_len` tokens (numpy `default_rng(1)`; an encoder-decoder's
+    `frames` frame embeddings a prompt from `default_rng(2)`) and
+    `n_tokens` greedy tokens, with every launch counter set to 0 just
+    before and read just after: K4 once per Mamba layer and K5 once per
+    attention (in the prefill), every other kernel 0, finite logits.
+    Prints prefill ms, decode ms per token, tokens/s and peak device
+    memory, the first step's logit gap to the plain path in the same
+    dtype (and, with `--profile`, `profile_serve`). Then, the model
+    freed and unless `f32` is False, the same session in f32 (at
+    `f32_layers` when given) with the plain prefill path and with the
+    kernels, held to LOGIT_ATOL over the steps with equal histories.
+    Returns the launch counts of the main-path run."""
     import numpy as np
     import torch
 
@@ -1387,19 +1486,22 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
     from repro_torch.launch.lm_serve import ServeSession
 
     dev = torch.device("cuda")
+    cfg0 = get_config(arch)
     prompts = np.random.default_rng(1).integers(
-        0, get_config(arch).vocab_size, (batch, prompt_len))
+        0, cfg0.vocab_size, (batch, prompt_len))
+    src = np.random.default_rng(2).standard_normal(
+        (batch, frames, cfg0.d_model), dtype=np.float32) if frames else None
     max_len = prompt_len + n_tokens
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    sess = ServeSession(arch, batch=batch, max_len=max_len,
+    sess = ServeSession(arch, batch=batch, max_len=max_len, src_len=frames,
                         model=serve_model(arch, layers, None, dev))
-    sess.generate(prompts, 2)                     # warm-up
+    sess.generate(prompts, 2, src)                # warm-up
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    stream = sess.stream(prompts, n_tokens)
+    stream = sess.stream(prompts, n_tokens, src)
     first = next(stream)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1415,8 +1517,10 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
              f"depth cut to {layers} of {get_config(arch).num_layers} "
              f"layers (the host's share of each step is larger than in a "
              f"deployment)")
+    enc = (f" + {sess.cfg.enc_layers} encoder layers over {batch} x "
+           f"{frames} frames" if sess.cfg.enc_dec else "")
     print(f"[{tag}] ServeSession({arch!r}), {depth}: "
-          f"{sess.cfg.num_layers} layers, d_model {sess.cfg.d_model}, "
+          f"{sess.cfg.num_layers} layers{enc}, d_model {sess.cfg.d_model}, "
           f"{sess.cfg.dtype}; {batch} x {prompt_len}-token prompts, "
           f"{n_tokens} greedy tokens: prefill {prefill_ms:.3f} ms, decode "
           f"{decode_ms:.3f} ms per token ({batch * 1e3 / decode_ms:.1f} "
@@ -1429,24 +1533,26 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
             all(torch.isfinite(lg.float()).all() for _, lg in out):
         fail(f"[{tag}] the serve path's tokens or logits are malformed")
     plain = ServeSession(arch, batch=batch, max_len=max_len, force="ref",
-                         model=sess.model)
-    _, plain_first = next(plain.stream(prompts, 1))
+                         src_len=frames, model=sess.model)
+    _, plain_first = next(plain.stream(prompts, 1, src))
     gap = float((first[1].float() - plain_first.float()).abs().max())
     print(f"[{tag}] {sess.cfg.dtype} session, first step: kernels vs their "
           f"plain paths: logits max abs gap {gap:.3e} over "
           f"{sess.cfg.num_layers} layers (printed, no bar)")
     del plain, plain_first
     if "--profile" in sys.argv[1:]:
-        profile_serve(sess, prompts)
+        profile_serve(sess, prompts, src=src)
     del sess, stream, first, out
     runs = {}
     torch.cuda.empty_cache()
+    if not f32:
+        return counts
     m32 = serve_model(arch, f32_layers or layers, "float32", dev)
     for force in ("ref", None):
         s32 = ServeSession(arch, batch=batch, max_len=max_len, force=force,
-                           model=m32)
+                           src_len=frames, model=m32)
         ops.reset_launches()
-        res = list(s32.stream(prompts, n_tokens))
+        res = list(s32.stream(prompts, n_tokens, src))
         if force:
             if any(ops.launch_counts().values()):
                 fail(f"[{tag}] the f32 session (force={force}) launched "
@@ -1477,15 +1583,21 @@ def serve_main_path(tag, arch, batch, prompt_len, n_tokens, layers=None,
     return counts
 
 
-def bf16_pair(tag, arch, batch, prompt_len, kernel, numpy_weights=True):
-    """`arch` at its published width, 2 layers, in the config's bf16,
-    weights from `numpy_params(cfg, seed=0)` (`numpy_weights`) or
+def bf16_pair(tag, arch, batch, prompt_len, kernel, numpy_weights=True,
+              layers=2, frames=0, rtol=0.0):
+    """`arch` at its published width, `layers` layers (an
+    encoder-decoder's encoder too), in the config's bf16, weights from
+    `numpy_params(cfg, seed=0)` (`numpy_weights`) or
     `lm.init_model(cfg, seed=0)` on the card: a prefill of `batch`
-    prompts of `prompt_len` tokens (numpy `default_rng(1)`) and
-    PAIR_STEPS teacher-forced decode steps (the same next tokens for
+    prompts of `prompt_len` tokens (numpy `default_rng(1)`; an
+    encoder-decoder's `frames` frames a prompt from `default_rng(2)`)
+    and PAIR_STEPS teacher-forced decode steps (the same next tokens for
     both), once with the plain prefill path and once with the kernels;
-    `kernel` runs once per layer in the second and never in the first,
-    and every step's logits agree to BF16_LOGIT_ATOL."""
+    `kernel` runs as `expected_launches` says in the second and never in
+    the first, and every logit of every step agrees with the plain one,
+    w, to BF16_LOGIT_ATOL + `rtol` (|w| + the RMS of w's row) (`rtol` 0:
+    C5's bar; ROADMAP C15 for the models whose logits need the relative
+    term)."""
     import dataclasses
 
     import numpy as np
@@ -1496,20 +1608,26 @@ def bf16_pair(tag, arch, batch, prompt_len, kernel, numpy_weights=True):
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers, **(
+        {"enc_layers": layers} if cfg.enc_dec else {}))
     model = (lm.from_reference(*lm.numpy_params(cfg, seed=0), cfg,
                                device=dev) if numpy_weights
              else lm.init_model(cfg, seed=0, device=dev))
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt_len + PAIR_STEPS)), device=dev)
+    src = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (batch, frames, cfg.d_model), dtype=np.float32),
+        device=dev) if frames else None
     runs = {}
     for force in ("ref", None):
         ops.reset_launches()
         with torch.inference_mode():
             cache = lm.init_cache(cfg, batch, prompt_len + PAIR_STEPS,
-                                  device=dev)
+                                  src_len=frames, device=dev)
             lg, cache = lm.forward_prefill(model, tokens[:, :prompt_len],
-                                           cache, force=force)
+                                           cache, src_embeds=src,
+                                           force=force)
             out = [lg[:, -1].float()]
             for i in range(PAIR_STEPS):
                 pos = prompt_len + i
@@ -1517,53 +1635,70 @@ def bf16_pair(tag, arch, batch, prompt_len, kernel, numpy_weights=True):
                                               cache, pos)
                 out.append(lg[:, -1].float())
         n = ops.launch_counts()[kernel]
-        if n != (0 if force else cfg.num_layers):
+        if n != (0 if force else expected_launches(cfg)[kernel]):
             fail(f"[{tag}] the bf16 pair (force={force}) launched {kernel} "
                  f"{n} times")
         runs[force] = out
         del cache
     errs = [float((g - w).abs().max())
             for g, w in zip(runs[None], runs["ref"])]
+    # each logit's error over its own bar: at most 1 everywhere; the
+    # worst (share, error, |w|, its row's RMS)
+    worst = (0.0, 0.0, 0.0, 0.0)
+    for g, w in zip(runs[None], runs["ref"]):
+        rms = w.pow(2).mean(dim=1, keepdim=True).sqrt().expand_as(w)
+        err = (g - w).abs()
+        share = err / (BF16_LOGIT_ATOL + rtol * (w.abs() + rms))
+        i = share.argmax()
+        worst = max(worst, tuple(float(t.flatten()[i])
+                                 for t in (share, err, w.abs(), rms)))
     finite = all(bool(torch.isfinite(g).all()) for g in runs[None])
-    print(f"[{tag}] bf16 pair: {arch} full width, {cfg.num_layers} layers, "
-          f"{cfg.dtype}, {batch} x {prompt_len} tokens + {PAIR_STEPS} "
-          f"teacher-forced steps, {kernel} vs its plain path: logits max "
-          f"abs error {errs[0]:.3e} after the prefill, {max(errs[1:]):.3e} "
-          f"over the decode steps (bar {BF16_LOGIT_ATOL})")
-    if max(errs) > BF16_LOGIT_ATOL or not finite:
+    enc = f" (+ {layers} encoder layers, {frames} frames)" if frames else ""
+    print(f"[{tag}] bf16 pair: {arch} full width, {cfg.num_layers} layers"
+          f"{enc}, {cfg.dtype}, {batch} x {prompt_len} tokens + "
+          f"{PAIR_STEPS} teacher-forced steps, {kernel} vs its plain path: "
+          f"logits max abs error {errs[0]:.3e} after the prefill, "
+          f"{max(errs[1:]):.3e} over the decode steps (bar "
+          f"{BF16_LOGIT_ATOL} + {rtol:.4g} (|w| + its row's RMS) a plain "
+          f"logit w; the worst element used {worst[0]:.3f} of its bar: "
+          f"error {worst[1]:.4g} at |w| {worst[2]:.4g}, row RMS "
+          f"{worst[3]:.4g}; largest plain logit "
+          f"{max(float(w.abs().max()) for w in runs['ref']):.4g})")
+    if worst[0] > 1.0 or not finite:
         fail(f"[{tag}] the bf16 logits through {kernel} differ from the "
              f"plain path's")
     del model, runs
     torch.cuda.empty_cache()
 
 
-def sdpa_any(q, k, v):
+def sdpa_any(q, k, v, causal=True):
     """`sdpa` where some backend of this install takes the shape: (its
     device ms over 10 calls, None), else (None, the error it raised) (a
     yardstick only; the port never calls it)."""
     import torch
 
     try:
-        sdpa(q, k, v)
+        sdpa(q, k, v, causal)
         torch.cuda.synchronize()
     except RuntimeError as e:
         return None, str(e).splitlines()[0]
-    return cuda_ms(lambda: sdpa(q, k, v), 10), None
+    return cuda_ms(lambda: sdpa(q, k, v, causal), 10), None
 
 
-def attention_shape_record(tag, shape, dtype, dev, what):
-    """K5 at `shape` (causal, q_offset 0) in `dtype` against its plain
-    version at the dtype's bar, then its time beside the plain
-    version's, SDPA's (`sdpa_any`) and the bound, with the bf16 TFLOP/s
-    and the bound share; max |o| and max |Δo| printed (ROADMAP C8).
-    Returns the record for the kernels line's `shapes`."""
+def attention_shape_record(tag, shape, dtype, dev, what, causal=True):
+    """K5 at `shape` (causal unless `causal` is False, q_offset 0) in
+    `dtype` against its plain version at the dtype's bar, then its time
+    beside the plain version's, SDPA's (`sdpa_any`) and the bound, with
+    the bf16 TFLOP/s and the bound share; max |o| and max |Δo| printed
+    (ROADMAP C8). Returns the record for the kernels line's
+    `shapes`."""
     import torch
 
     from repro_torch.kernels import ops
 
     q, k, v = flash_inputs(shape, dtype, shape[3] + shape[5], dev)
-    got = ops.flash_attention(q, k, v)
-    want = ops.flash_attention(q, k, v, force="ref")
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, force="ref")
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     omax = float(want.float().abs().max())
@@ -1571,13 +1706,15 @@ def attention_shape_record(tag, shape, dtype, dev, what):
     if err > bar or got.dtype != dtype or not bool(torch.isfinite(got).all()):
         fail(f"[{tag}] K5 disagrees with flash_attention_ref at {shape} "
              f"{dtype}: max abs error {err:.3e} (bar {bar})")
-    bnd, by, pairs = attention_bound_ms(shape, q.element_size())
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 10)
-    plain = cuda_ms(lambda: ops.flash_attention(q, k, v, force="ref"), 3)
-    lib, lib_err = sdpa_any(q, k, v)
+    bnd, by, pairs = attention_bound_ms(shape, q.element_size(), causal)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10)
+    plain = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                force="ref"), 3)
+    lib, lib_err = sdpa_any(q, k, v, causal)
     _, _, _, _, _, D, Dv, _ = attention_widths(shape)
     flop = 2 * (D + Dv) * pairs
-    print(f"[{tag}] K5 at {what} {shape} {str(dtype)[6:]}: max abs error "
+    print(f"[{tag}] K5 at {what} {shape} {str(dtype)[6:]} causal={causal}: "
+          f"max abs error "
           f"{err:.3e} (bar {bar}), max |o| {omax:.4f}; kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, SDPA "
           + (f"{lib:.4f} ms" if lib is not None else f"null ({lib_err})")
@@ -1585,8 +1722,8 @@ def attention_shape_record(tag, shape, dtype, dev, what):
           f"{flop / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.1%} of the bound; "
           f"{smi()}")
     del q, k, v, got, want
-    return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "causal": causal,
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib, "max_abs_err": err, "max_abs_o": omax}
 
 
@@ -1931,16 +2068,14 @@ def within(tag, what, got, want, bar=1e-2):
         fail(f"[{tag}] {what} deviates {rel:.3%} from the JAX package")
 
 
-def learned_main_path(tag, fleet, params, leaf, known):
-    """Phase 18: the learned-size fleet, its parity lanes, the learned
-    leaf-spine pair and fig_sampling's jax-plane lanes against
-    `LEARNED_GOLDEN`. `known` is phase 4's result (the same traces with
+def learned_main_path(tag, fleet, leaf, known):
+    """Phase 18: the learned-size fleet, its parity lanes and the learned
+    leaf-spine pair against `LEARNED_GOLDEN` (fig_sampling's lanes are
+    phase 23's). `known` is phase 4's result (the same traces with
     known sizes, for the wall beside). Returns the launch counts of the
     big-switch fleet run and of the leaf-spine pair, and the kernels'
     largest deviations from their plain versions on both runs' captured
     ticks."""
-    import numpy as np
-
     from repro_torch.api import Scenario, run
     from repro_torch.kernels import ops
     from repro_torch.traces.synth import fb_like_trace
@@ -1994,34 +2129,6 @@ def learned_main_path(tag, fleet, params, leaf, known):
     _, lerr = compare_ticks(tag, lcaptured, exact_rates=True, learned=True)
     err = {k: max(err[k], lerr[k]) for k in err}
 
-    p = dataclasses.replace(params, dynamics_requeue=True)
-    tr = fb_like_trace(FIG_COFLOWS, FIG_PORTS, seed=0)
-    lanes = {"known": dict(clairvoyance=True),
-             "learned": dict(clairvoyance=False),
-             "aalo-like": dict(mechanisms=dict(lcof=False,
-                                               per_flow_threshold=False))}
-    fig = {}
-    for lane, kw in lanes.items():
-        fig[lane] = run(Scenario(engine="torch", trace=tr, params=p, **kw))
-        within(tag, f"fig_sampling {lane} (fb_like_trace({FIG_COFLOWS}, "
-               f"{FIG_PORTS}, seed=0), {fig[lane].events} events, wall "
-               f"{fig[lane].wall_seconds:.3f} s)", fig[lane].avg_cct[0],
-               gold["fig_sampling"][lane]["avg_cct"])
-    learned, aalo = fig["learned"].avg_cct[0], fig["aalo-like"].avg_cct[0]
-    print(f"[{tag}] fig_sampling: known {fig['known'].avg_cct[0]:.6f}, "
-          f"learned {learned:.6f}, aalo-like {aalo:.6f} s avg CCT")
-    if not learned < aalo:
-        fail(f"[{tag}] learned Saath does not beat aalo-like")
-    sweep = run(Scenario(engine="torch", trace=tr, sweep=(
-        p, dataclasses.replace(p, clairvoyant=False))))
-    if not np.array_equal(sweep.row_cct(0), fig["known"].row_cct(0)):
-        fail(f"[{tag}] the sweep's known row differs from the solo known run")
-    if np.array_equal(sweep.row_cct(1), fig["known"].row_cct(0)):
-        fail(f"[{tag}] the sweep's learned row equals the known schedule")
-    dev_l = np.abs(sweep.row_cct(1) - fig["learned"].row_cct(0)).max()
-    print(f"[{tag}] sweep [known, learned]: the known row equals the solo "
-          f"known run bit for bit, the learned row differs from it (max "
-          f"|Δ CCT| to the solo learned run {dev_l:.3e} s)")
     return counts, lcounts, err
 
 
@@ -2143,7 +2250,8 @@ def drivers_phase(tag):
     """Phase 21: the port's drivers on the card at their defaults:
     `benchmarks/torch_pool_throughput.py` (16 sessions x 10 coflows;
     its bitwise-CCT and single-upload gates hold, the speedup is printed
-    beside the reference's 4.0 and not gated), Table 2's rows (a), (b)
+    beside the reference's 4.0 and not gated; no cold passes, as phase 1
+    built the kernels and earlier phases loaded them), Table 2's rows (a), (b)
     and (c) (`torch_table2_coordinator_latency.py`, its sub-second gate
     at 4096 coflows) and `torch_api_smoke.py` (the JAX package's CCTs at
     rtol 1e-5, the numpy engine within 1%, the session bit for bit its
@@ -2156,7 +2264,7 @@ def drivers_phase(tag):
     gate = os.environ.get("SAATH_POOL_MIN_SPEEDUP")
     os.environ["SAATH_POOL_MIN_SPEEDUP"] = "0"
     try:
-        rec = torch_pool_throughput.main([])
+        rec = torch_pool_throughput.main(["--no-cold"])
     except AssertionError as e:
         fail(f"[{tag}] torch_pool_throughput: {e}")
     finally:
@@ -2168,7 +2276,7 @@ def drivers_phase(tag):
           f"pooled CCTs == sequential bit "
           f"for bit, {rec['full_uploads']} full upload; sequential "
           f"{rec['wall_sequential']:.3f} s, pool {rec['wall_pool']:.3f} s "
-          f"(best of two warm passes; kernel builds in the cold passes "
+          f"(best of two warm passes; kernel builds during the drive "
           f"{rec['build_seconds']:.2f} s): speedup {rec['speedup']:.3f}x "
           f"against the reference's gate {POOL_GATE}x ("
           f"{'met' if rec['speedup'] >= POOL_GATE else 'NOT met'}; read, "
@@ -2214,6 +2322,50 @@ def capture_contention(keep=5):
         ops.contention = real
 
 
+def line_buffered():
+    """A worker process's start: its printed lines reach the smoke's
+    output whole and in time."""
+    sys.stdout.reconfigure(line_buffering=True)
+
+
+def worker_pool(n):
+    """`n` worker processes (spawned: the parent holds a CUDA context);
+    leaving its `with` block waits for them and stops them."""
+    return concurrent.futures.ProcessPoolExecutor(
+        n, mp_context=multiprocessing.get_context("spawn"),
+        initializer=line_buffered)
+
+
+def host_plane_replay(name):
+    """Phase 22's replay of policy `name` in a worker process: through a
+    FULL `torch_common.Bench` on the card (the numpy engine), the launch
+    counters set to 0 just before and read just after. Returns (the
+    result, its launch counts, its host<->device transfer counts, K1's
+    heaviest card incidences (saath and lwtf's own calls; saath-torch's
+    come whole from its tick, phase 6's shape) copied to the host)."""
+    from benchmarks import torch_common
+    from repro_torch.core import transfer
+    from repro_torch.kernels import ops
+
+    bench = torch_common.Bench(quick=False, device="cuda")
+    io0 = transfer.counts()
+    with (capture_contention() if name in ("saath", "lwtf")
+          else contextlib.nullcontext([])) as caught:
+        ops.reset_launches()
+        r = bench.run(name, engine="numpy")
+        counts = ops.launch_counts()
+    io = {k: v - io0[k] for k, v in transfer.counts().items()}
+    return r, counts, io, [tuple(t.cpu() for t in g) for g in caught]
+
+
+def cpu_replay(sc):
+    """`repro_torch.api.run(sc)` in a worker process: the CPU replays
+    that phases 22 and 23 hold the card's replays against."""
+    from repro_torch.api import run
+
+    return run(sc)
+
+
 def host_plane_phase(tag, bench):
     """Phase 22: the event-driven host plane (see the module docstring),
     its replays through `bench` (`torch_common.Bench` at FULL on the
@@ -2222,10 +2374,8 @@ def host_plane_phase(tag, bench):
     `host_plane` path) and K1's largest deviation from its plain version
     on the captured incidences."""
     import numpy as np
-    import torch
 
-    from repro_torch.api import Scenario, run
-    from repro_torch.core import transfer
+    from repro_torch.api import Scenario
     from repro_torch.kernels import ops
     from repro_torch.traces.synth import fb_like_trace
 
@@ -2239,20 +2389,26 @@ def host_plane_phase(tag, bench):
     total = None
     res = {}
     grabbed = []
+    # every replay in a worker process of its own, all at once: the card's
+    # nine (saath, lwtf and saath-torch launch kernels, the six host
+    # policies never touch the card) and the CPU replays of saath and
+    # lwtf; the walls printed are those of concurrent replays
+    with worker_pool(HOST_WORKERS) as pool:
+        cpu_jobs = {name: pool.submit(cpu_replay, Scenario(
+            engine="numpy", policy=name, device="cpu", trace=tr))
+            for name in ("saath", "lwtf")}
+        jobs = {name: pool.submit(host_plane_replay, name)
+                for name in reversed(HOST_PLANE)}
+        try:
+            cpu = {name: job.result() for name, job in cpu_jobs.items()}
+            done = {name: job.result() for name, job in jobs.items()}
+        except Exception as e:
+            fail(f"[{tag}] a replay's worker process failed: {e!r}")
     for name in HOST_PLANE:
         want = gold["saath-jax" if name == "saath-torch" else name]
-        torch.cuda.synchronize()
-        io0 = transfer.counts()
-        # the heaviest incidences of the host policies' own K1 calls
-        # (saath-torch's come whole from its tick, phase 6's shape)
-        with (capture_contention() if name in ("saath", "lwtf")
-              else contextlib.nullcontext([])) as caught:
-            ops.reset_launches()
-            try:
-                r = bench.run(name, engine="numpy")
-            finally:
-                counts = ops.launch_counts()
-        io = {k: v - io0[k] for k, v in transfer.counts().items()}
+        r, counts, io, caught = done[name]
+        bench.add(r)
+        caught = [tuple(t.cuda() for t in g) for g in caught]
         grabbed = sorted(grabbed + caught, key=lambda g: -g[0].shape[1])[:5]
         total = counts if total is None else \
             {k: total[k] + v for k, v in counts.items()}
@@ -2302,17 +2458,15 @@ def host_plane_phase(tag, bench):
           f"{abs(gold['saath-jax']['avg_cct'] - gold['saath']['avg_cct']) / gold['saath']['avg_cct']:.3e}"
           f" from its numpy Saath)")
     for name in ("saath", "lwtf"):
-        card = res[name]
-        cpu = run(Scenario(engine="numpy", policy=name, device="cpu",
-                           trace=tr))
-        if cpu.steps != card.steps or not (
-                np.array_equal(cpu.cct, card.cct)
-                and np.array_equal(cpu.fct, card.fct)):
+        card, host = res[name], cpu[name]
+        if host.steps != card.steps or not (
+                np.array_equal(host.cct, card.cct)
+                and np.array_equal(host.fct, card.fct)):
             fail(f"[{tag}] {name} on the card differs from its CPU run")
-        print(f"[{tag}] {name}: the card's replay equals the same "
-              f"process's device='cpu' replay bit for bit (steps "
-              f"{card.steps}, CCTs, FCTs; walls: card "
-              f"{card.wall_seconds:.3f} s, CPU {cpu.wall_seconds:.3f} s)")
+        print(f"[{tag}] {name}: the card's replay equals a device='cpu' "
+              f"replay bit for bit (steps {card.steps}, CCTs, FCTs; walls: "
+              f"card {card.wall_seconds:.3f} s, CPU "
+              f"{host.wall_seconds:.3f} s)")
     err = hold_kernels(tag, "the host plane", [], grabbed)["contention"]
     a_s, a_r, act = grabbed[0]
     ms = cuda_ms(lambda: ops.contention(a_s, a_r, act), 50)
@@ -2377,85 +2531,111 @@ def hold_kernels(tag, what, captured, caught):
     return err
 
 
-def figures_phase(tag, full, known):
-    """Phase 23: the paper's figure drivers on the card (module
-    docstring); fig9 on `full`, the FULL bench phase 22 filled, the rest
-    on one QUICK bench. `known` is phase 4's result (lane 0 is fig9's
-    Saath row). Returns the launch counts of their replays (the
-    `figures` path) and the kernels' largest deviations from their plain
-    versions on the inputs captured from them."""
+def figure_driver(tag, name, bench=None):
+    """The figure driver `name` (`FIGURES`) through its own
+    `run(bench, engine="torch")` on the card (`bench` None: a QUICK
+    bench of its own, as in a worker process), the launch counters set
+    to 0 just before and read just after, every front-door replay it
+    makes recorded; its gates must hold, no kernel off the figures' path
+    may run, and its captured ticks and K1 incidences are held to the
+    plain versions (`hold_kernels`). Returns (its rows, its launch
+    counts, the kernels' largest deviations, [(scenario, result)] of its
+    replays)."""
     import importlib
-
-    import numpy as np
 
     from benchmarks import torch_common
     from repro_torch.kernels import ops
 
-    quick = torch_common.Bench(quick=True, device="cuda")
-    mods = [torch_common] + [importlib.import_module(f"benchmarks.torch_{n}")
-                             for n in FIGURES]
+    if bench is None:
+        bench = torch_common.Bench(quick=True, device="cuda")
+    mod = importlib.import_module(f"benchmarks.torch_{name}")
     real_run = torch_common.api_run
-    replays = []   # every front-door replay the drivers make
+    replays = []
 
     def spy(sc):
         res = real_run(sc)
         replays.append((sc, res))
         return res
 
-    patched = [m for m in mods if getattr(m, "api_run", None) is real_run]
-    total = None
-    err = {n: 0.0 for n in ("contention", "tick_walk", "maxmin_rates",
-                            "prefix_sum")}
+    patched = [m for m in (torch_common, mod)
+               if getattr(m, "api_run", None) is real_run]
     for m in patched:
         m.api_run = spy
     try:
-        for name, mod in zip(FIGURES, mods[1:]):
-            bench = full if name == "fig9_speedup" else quick
-            with capture_ticks(FIGURE_CAPTURE_EVERY) as captured, \
-                    capture_contention() as caught:
-                ops.reset_launches()
-                t0 = time.perf_counter()
-                try:
-                    rows = mod.run(bench, engine="torch")
-                except AssertionError as e:
-                    fail(f"[{tag}] torch_{name}: a gate failed: {e}")
-                finally:
-                    counts = ops.launch_counts()
-                wall = time.perf_counter() - t0
-            total = counts if total is None else \
-                {k: total[k] + v for k, v in counts.items()}
-            size = ("FULL", torch_common.FULL) if bench is full else \
-                ("QUICK", torch_common.QUICK)
-            print(f"[{tag}] torch_{name} at {size[0]} {size[1]}: every gate "
-                  f"holds; wall {wall:.3f} s; K1 launches "
-                  f"{counts['contention']}, K2 {counts['tick_walk']}, K6 "
-                  f"{counts['prefix_sum']} ({counts['prefix_sum_rows']} "
-                  f"rows), K3 {counts['maxmin']} (replays cached by phase "
-                  f"22 or an earlier driver are not rerun)", flush=True)
-            if counts["ssd_scan"] or counts["flash_attention"] or \
-                    counts["maxmin"]:
-                fail(f"[{tag}] torch_{name}: a kernel off the figures' path "
-                     f"ran")
-            if name == "fig9_speedup":
-                for r in rows:
-                    if "p50" in r:
-                        print(f"[{tag}] fig9 Saath against {r['vs']}: p50 "
-                              f"{r['p50']:.4f}x, p90 {r['p90']:.4f}x, "
-                              f"overall {r['overall']:.4f}x")
-                    else:
-                        print(f"[{tag}] fig9 {r['vs']}: wall "
-                              f"{r['wall_s']:.4f} s, speedup "
-                              f"{r['speedup']:.3f}x ({r['note']})")
-                print(f"[{tag}] fig9 fleet: {rows[-1]['speedup']:.3f}x "
-                      f"against the gate "
-                      f"{os.environ.get('SAATH_FLEET_MIN_SPEEDUP', '5.0')}x"
-                      f"; {smi()}")
-            e = hold_kernels(tag, f"torch_{name}", captured, caught)
-            err = {k: max(err[k], e[k]) for k in err}
-            del captured, caught
+        with capture_ticks(FIGURE_CAPTURE_EVERY) as captured, \
+                capture_contention() as caught:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rows = mod.run(bench, engine="torch")
+            except AssertionError as e:
+                fail(f"[{tag}] torch_{name}: a gate failed: {e}")
+            finally:
+                counts = ops.launch_counts()
+            wall = time.perf_counter() - t0
     finally:
         for m in patched:
             m.api_run = real_run
+    size = ("QUICK", torch_common.QUICK) if bench.quick else \
+        ("FULL", torch_common.FULL)
+    print(f"[{tag}] torch_{name} at {size[0]} {size[1]}: every gate "
+          f"holds; wall {wall:.3f} s; K1 launches "
+          f"{counts['contention']}, K2 {counts['tick_walk']}, K6 "
+          f"{counts['prefix_sum']} ({counts['prefix_sum_rows']} "
+          f"rows), K3 {counts['maxmin']} (replays cached by phase "
+          f"22 or earlier in its process are not rerun)", flush=True)
+    if counts["ssd_scan"] or counts["flash_attention"] or counts["maxmin"]:
+        fail(f"[{tag}] torch_{name}: a kernel off the figures' path ran")
+    err = hold_kernels(tag, f"torch_{name}", captured, caught)
+    return rows, counts, err, replays
+
+
+def figures_phase(tag, full, known):
+    """Phase 23: the paper's figure drivers on the card (module
+    docstring); fig9 on `full`, the FULL bench phase 22 filled, then
+    the QUICK ones at once, each in a worker process on a QUICK bench of
+    its own (`figure_driver`), beside the fleet's CPU fidelity replay;
+    their replays then fill `quick`. `known` is phase 4's result (lane 0
+    is fig9's Saath row). Returns the launch counts of their replays
+    (the `figures` path) and the kernels' largest deviations from their
+    plain versions on the inputs captured from them."""
+    import numpy as np
+
+    from benchmarks import torch_common
+    from repro_torch.api import Scenario
+    from repro_torch.traces.synth import fb_like_trace
+
+    real_run = torch_common.api_run
+    rows, total, err, replays = figure_driver(tag, FIGURES[0], full)
+    for r in rows:
+        if "p50" in r:
+            print(f"[{tag}] fig9 Saath against {r['vs']}: p50 "
+                  f"{r['p50']:.4f}x, p90 {r['p90']:.4f}x, overall "
+                  f"{r['overall']:.4f}x")
+        else:
+            print(f"[{tag}] fig9 {r['vs']}: wall {r['wall_s']:.4f} s, "
+                  f"speedup {r['speedup']:.3f}x ({r['note']})")
+    print(f"[{tag}] fig9 fleet: {rows[-1]['speedup']:.3f}x against the gate "
+          f"{os.environ.get('SAATH_FLEET_MIN_SPEEDUP', '5.0')}x; {smi()}")
+    fsc, fid = next((sc, r) for sc, r in replays
+                    if sc.label == "fleet-fidelity")
+    with worker_pool(len(FIGURES)) as pool:
+        fid_cpu = pool.submit(cpu_replay, dataclasses.replace(
+            fsc, device="cpu", warm_timing=False))
+        jobs = [pool.submit(figure_driver, tag, name)
+                for name in FIGURES[1:]]
+        try:
+            cpu = fid_cpu.result()
+            for job in jobs:
+                _, counts, e, more = job.result()
+                total = {k: total[k] + v for k, v in counts.items()}
+                err = {k: max(err[k], e[k]) for k in err}
+                replays += more
+        except BaseException as e:
+            fail(f"[{tag}] a figure driver's worker process failed: {e!r}")
+    quick = torch_common.Bench(quick=True, device="cuda")
+    for _, res in replays:
+        quick.add(res)
     for k in ("contention", "tick_walk", "prefix_sum"):
         if not total[k]:
             fail(f"[{tag}] {k} was not launched by the figure drivers")
@@ -2473,21 +2653,14 @@ def figures_phase(tag, full, known):
     if rel > 1e-2:
         fail(f"[{tag}] fig9's Saath row deviates {rel:.3%} from the JAX "
              f"package")
-    seq = fid = None
-    for sc, res in replays:
-        if sc.label == "fleet-seq":
-            seq = (sc, res)
-        elif sc.label == "fleet-fidelity":
-            fid = (sc, res)
-    sc, res = fid
-    cpu = real_run(dataclasses.replace(sc, device="cpu", warm_timing=False))
-    if cpu.steps != res.steps or not np.array_equal(cpu.cct, res.cct,
+    seq = next((sc, res) for sc, res in replays if sc.label == "fleet-seq")
+    if cpu.steps != fid.steps or not np.array_equal(cpu.cct, fid.cct,
                                                     equal_nan=True):
         fail(f"[{tag}] the fleet's fidelity replay on the card differs from "
              f"its device='cpu' replay")
-    print(f"[{tag}] fig9 fleet-fidelity ({len(sc.traces)} lanes): the card's "
-          f"batched replay equals the same scenario's device='cpu' replay "
-          f"bit for bit (steps {res.steps}, CCTs; CPU wall "
+    print(f"[{tag}] fig9 fleet-fidelity ({len(fsc.traces)} lanes): the "
+          f"card's batched replay equals the same scenario's device='cpu' "
+          f"replay bit for bit (steps {fid.steps}, CCTs; CPU wall "
           f"{cpu.wall_seconds:.3f} s)")
     sc, host = seq
     card = real_run(dataclasses.replace(sc, device="cuda"))
@@ -2509,6 +2682,23 @@ def figures_phase(tag, full, known):
         if res.events != want["events"]:
             fail(f"[{tag}] the QUICK {lane} row took {res.events} events, "
                  f"the JAX package {want['events']}")
+    # the sweep over [known, learned] against the driver's solo lanes
+    solo = {sc.label: (sc, res) for sc, res in replays
+            if sc.engine == "torch" and sc.label.startswith("sampling-")}
+    ksc, kres = solo["sampling-known"]
+    p = ksc.params
+    sweep = real_run(Scenario(engine="torch", trace=fb_like_trace(
+        FIG_COFLOWS, FIG_PORTS, seed=0), sweep=(
+            p, dataclasses.replace(p, clairvoyant=False))))
+    if not np.array_equal(sweep.row_cct(0), kres.row_cct(0)):
+        fail(f"[{tag}] the sweep's known row differs from the solo known run")
+    if np.array_equal(sweep.row_cct(1), kres.row_cct(0)):
+        fail(f"[{tag}] the sweep's learned row equals the known schedule")
+    dev_l = np.abs(sweep.row_cct(1)
+                   - solo["sampling-learned"][1].row_cct(0)).max()
+    print(f"[{tag}] sweep [known, learned]: the known row equals the solo "
+          f"known run bit for bit, the learned row differs from it (max "
+          f"|Δ CCT| to the solo learned run {dev_l:.3e} s)")
     return total, err
 
 
@@ -3447,7 +3637,7 @@ def train_phase(tag):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import WIDTHS
+    from repro_torch.kernels.flash_attention_bwd import WIDTHS
     from repro_torch.launch.train import train
 
     layers = get_config(ATTN_ARCH).num_layers
@@ -3546,6 +3736,68 @@ def train_phase(tag):
                      "peak_bytes": peak, "layers": layers,
                      "losses": losses}}
     return rec, counts
+
+
+def dense_phase(tag):
+    """Phase 30: K5 at the new models' shapes (`DENSE_K5`: Gemma's (256,
+    256), SeamlessM4T's non-causal encoder and cross attention, S != T,
+    DeepSeek-Coder's G = 7), f32 and bf16, against its plain version
+    with its time beside the plain version's, SDPA's and the bound
+    (`attention_shape_record`); the five goldens (`golden_parity`:
+    published widths, 2 layers, f32, SeamlessM4T with the golden's
+    frames); each model through `ServeSession(arch, smoke=False)` at its
+    published width and depth in bf16, one after another, each freed
+    before the next (`serve_main_path`, no f32 re-run: the 33 B models do
+    not fit the card in f32), K5 launches a prefill equal to
+    `DENSE_K5_LAUNCHES`; and each at `DENSE_PAIR_LAYERS` layers in bf16,
+    the plain attention against K5 (`bf16_pair`: C5's 0.1, and for a
+    tied embedding the relative term of BF16_STEPS_RTOL).
+    Returns (K5's shape records, {arch: the main-path run's launch
+    counts})."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in DENSE_ARCHS:
+        want = expected_launches(get_config(arch))["flash_attention"]
+        if want != DENSE_K5_LAUNCHES[arch]:
+            fail(f"[{tag}] {arch}'s plan gives {want} K5 launches a "
+                 f"prefill, not {DENSE_K5_LAUNCHES[arch]}")
+    shapes = [attention_shape_record(tag, shape, dtype, dev, what, causal)
+              for what, (shape, causal) in DENSE_K5.items()
+              for dtype in (torch.float32, torch.bfloat16)]
+    for arch in DENSE_ARCHS:
+        norms = {"k_cache_norm": "k", "v_cache_norm": "v"}
+        if get_config(arch).enc_dec:
+            norms.update(cross_k_cache_norm="cross_k",
+                         cross_v_cache_norm="cross_v")
+        golden_parity(tag, arch, ROOT / "tests" / "data" /
+                      DENSE_GOLDENS[arch], norms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = {}
+    for arch in DENSE_ARCHS:
+        enc = get_config(arch).enc_dec
+        counts[arch] = serve_main_path(
+            tag, arch, DENSE_BATCH, SEAMLESS_PROMPT if enc else DENSE_PROMPT,
+            DENSE_TOKENS, frames=SEAMLESS_FRAMES if enc else 0, f32=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in DENSE_ARCHS:
+        enc = get_config(arch).enc_dec
+        bf16_pair(tag, arch, DENSE_BATCH,
+                  SEAMLESS_PROMPT if enc else DENSE_PROMPT,
+                  "flash_attention", numpy_weights=False,
+                  layers=DENSE_PAIR_LAYERS,
+                  frames=SEAMLESS_FRAMES if enc else 0,
+                  rtol=BF16_STEPS_RTOL if get_config(arch).tie_embeddings
+                  else 0.0)
+    return shapes, counts
 
 
 def _guard(fn):
@@ -3971,9 +4223,8 @@ def main():
 
     lap("17")
 
-    # ---- 18. learned sizes: the fleet, its parity lanes, fig_sampling --
-    ecounts, elcounts, eerr = learned_main_path("18", fleet, params, leaf,
-                                                res)
+    # ---- 18. learned sizes: the fleet, its parity lanes ----------------
+    ecounts, elcounts, eerr = learned_main_path("18", fleet, leaf, res)
 
     lap("18")
 
@@ -4042,6 +4293,10 @@ def main():
     k7, tcounts = train_phase("29")
     lap("29")
 
+    # ---- 30. the other dense models and the encoder-decoder, full depth
+    dense_shapes, dense_counts = dense_phase("30")
+    lap("30")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
@@ -4050,7 +4305,9 @@ def main():
              "figures": fcounts, "bridge": bcounts, "analysis": ancounts,
              "qwen3_moe": moe_counts["qwen3-moe-235b-a22b"],
              "deepseek_v2": moe_counts["deepseek-v2-236b"],
-             "jamba": moe_counts["jamba-v0.1-52b"], "train": tcounts}
+             "jamba": moe_counts["jamba-v0.1-52b"], "train": tcounts,
+             **{a.replace("-", "_").replace(".", "p"): dense_counts[a]
+                for a in DENSE_ARCHS}}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
@@ -4099,7 +4356,7 @@ def main():
          "bound_ms": k5[torch.bfloat16]["bound"],
          "bound_by": k5[torch.bfloat16]["by"],
          "library_ms": k5[torch.bfloat16]["sdpa"],
-         "shapes": moe_shapes["flash_attention"]},
+         "shapes": moe_shapes["flash_attention"] + dense_shapes},
         {**k6, "launches": total["prefix_sum"],
          "launches_by_path": by_path["prefix_sum"],
          "rows": total["prefix_sum_rows"],

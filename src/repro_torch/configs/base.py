@@ -3,9 +3,8 @@
 `ModelConfig` is a field-for-field copy of the JAX package's
 `repro.configs.base.ModelConfig` with its derived properties (plain
 data; the port keeps its own copy and imports nothing of `repro`). The
-registry holds only the architectures the port runs; every other
-architecture of the reference raises `NotImplementedError` naming the
-ROADMAP item that brings it.
+registry holds the reference's ten architectures, each config module a
+copy of the reference's.
 """
 from __future__ import annotations
 
@@ -132,24 +131,18 @@ class ModelConfig:
         return full - inactive
 
 
-# --arch id -> config module, for the architectures the port runs
+# --arch id -> config module: every architecture of the reference
 ARCH_IDS = {
     "mamba2-1.3b": "mamba2_1p3b",
     "starcoder2-3b": "starcoder2_3b",
+    "gemma-7b": "gemma_7b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "deepseek-7b": "deepseek_7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "chameleon-34b": "chameleon_34b",
     "jamba-v0.1-52b": "jamba_52b",
-}
-
-# the reference's other --arch ids -> (config module, the ROADMAP queue A
-# item that ports them)
-_DENSE = "11f (the catalog's other dense and encoder-decoder models)"
-NOT_PORTED = {
-    "gemma-7b": ("gemma_7b", _DENSE),
-    "deepseek-coder-33b": ("deepseek_coder_33b", _DENSE),
-    "deepseek-7b": ("deepseek_7b", _DENSE),
-    "chameleon-34b": ("chameleon_34b", _DENSE),
-    "seamless-m4t-medium": ("seamless_m4t_medium", _DENSE),
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 
@@ -158,10 +151,6 @@ def _module(arch: str):
     if arch in ARCH_IDS or arch in ARCH_IDS.values():
         return importlib.import_module(
             f"repro_torch.configs.{ARCH_IDS.get(arch, arch)}")
-    for arch_id, (mod_name, item) in NOT_PORTED.items():
-        if arch in (arch_id, mod_name):
-            raise NotImplementedError(
-                f"{arch} is not ported yet: ROADMAP queue A item {item}")
     raise ValueError(f"unknown arch {arch!r}; available: "
                      f"{sorted(ARCH_IDS)}")
 

@@ -16,11 +16,13 @@
 // output o (B, H, S, DV), each given by its (batch, head, row) strides
 // with the last axis contiguous, so (B, S, H, D) tensors and slices of a
 // longer KV cache pass as views without a copy; f32 or bf16 (all four of
-// one type); (D, DV) one of (16, 16), (32, 32), (64, 64), (128, 128) and
+// one type); (D, DV) one of (16, 16), (32, 32), (64, 64), (128, 128),
 // (192, 128), MLA's prefill (repro/models/attention.py:268: q.k over 128
 // columns without RoPE and 64 with, values 128 wide; the scale D^-1/2 is
-// jnp_flash's, so MLA's folded factor is 1). Two designs, one for each
-// type; each takes the pairs as template parameters.
+// jnp_flash's, so MLA's folded factor is 1), and (256, 256), Gemma-7B's
+// heads. Two designs, one for each type; each takes the pairs as template
+// parameters. Causal or not (an encoder's self-attention, a decoder's
+// cross attention of S rows against T != S encoder rows).
 //
 // Bound on this card: at the serve shape (B 4, H 24, Hkv 2, S = T =
 // 2000, D 128, causal) the function needs 2 D multiply-adds for each of
@@ -46,8 +48,9 @@
 // half-warp, and keeps the rows' m, l and a (4, D / 16) slice of acc in
 // registers; the probabilities go back to shared memory (over the key
 // tile) for acc += P V. 101.6 KB of shared memory at D = 128, two
-// blocks an SM; 137.2 KB at (192, 128), one. Bound by its f32
-// multiply-adds and the shared-memory reads that feed them.
+// blocks an SM; 137.2 KB at (192, 128), one; 204.8 KB at (256, 256), one.
+// Bound by its f32 multiply-adds and the shared-memory reads that feed
+// them.
 //
 // bf16 (hopper::flash_fwd_sm90<D>; the 2e-2 bar admits bf16 products
 // with f32 sums): both products run on the tensor cores (wgmma), which
@@ -65,16 +68,19 @@
 //     of 128 rows lies in shared memory as D / 64 column blocks of 64
 //     columns at D = 128 (one block, swizzled 128B / 64B / 32B, at D =
 //     64 / 32 / 16). Q is loaded once; K and V tiles of BK = 128 keys
-//     go through a ring of 2 stages each, every stage with a "full"
-//     mbarrier (expect-tx bytes) and an "empty" one (one arrival per
-//     consumer warp). TMA needs a 16-byte-aligned base and strides
-//     that are multiples of 16 bytes; the wrapper raises on any other
-//     view. 160 KB of shared memory at D = 128, one block an SM; at
-//     (192, 128) Q and K tiles take 3 column blocks (48 KB) and V tiles
-//     2 (32 KB): 208 KB.
-//   - S = Q K^T: wgmma m64n128k16, both operands K-major in shared
-//     memory, D / 16 k-steps (32 bytes along a swizzled row, then the
-//     next column block): 12 at D = 192.
+//     (64 at D = 256, bk<D>) go through a ring of 2 stages each, every
+//     stage with a "full" mbarrier (expect-tx bytes) and an "empty" one
+//     (one arrival per consumer warp); their TMA boxes are BK rows high,
+//     Q's 128. TMA needs a 16-byte-aligned base and strides that are
+//     multiples of 16 bytes; the wrapper raises on any other view. 160
+//     KB of shared memory at D = 128, one block an SM; at (192, 128) Q
+//     and K tiles take 3 column blocks (48 KB) and V tiles 2 (32 KB):
+//     208 KB; at (256, 256) Q 64 KB and K and V tiles of 64 keys 32 KB
+//     each: 192 KB (128-key rings would need 320).
+//   - S = Q K^T: wgmma m64n{BK}k16 (n64 at D = 256), both operands
+//     K-major in shared memory, D / 16 k-steps (32 bytes along a
+//     swizzled row, then the next column block): 12 at D = 192, 16 at
+//     256.
 //   - Online softmax on the f32 accumulator fragment, in registers: the
 //     row max over the 4 threads of a row (2 shuffles), D^-1/2 log2 e
 //     folded into one multiply-add before ex2, l summed per thread from
@@ -85,6 +91,9 @@
 //     wgmma m64n{DV}k16 (the accumulator fragment is the A fragment's
 //     layout), so it never touches shared memory; V is the B operand,
 //     MN-major (transposed), its column blocks one leading offset apart.
+//     At DV = 256 O is 128 f32 registers a consumer thread, S 32 and P
+//     16: the 64-key tile is what leaves them room under setmaxnreg 240
+//     (no spill, 168 registers at launch).
 //   - Overlap, both ways: within a consumer, S_j = Q K_j^T and O +=
 //     P_{j-1} V_{j-1} are issued together, the exps of S_j run while
 //     the second product is in flight, and O is rescaled once it has
@@ -321,6 +330,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
     case widths(192, 128):
       return launch<T, 192, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
                                  causal, q_offset, stream);
+    case widths(256, 256):
+      return launch<T, 256, 256>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                                 causal, q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -333,61 +345,74 @@ namespace hopper {
 using namespace sm90;
 
 constexpr int BQ = 128;          // query rows per block, 64 per consumer
-constexpr int BK = 128;          // keys per tile
 constexpr int STAGES = 2;        // K and V tiles in flight, each
 constexpr int THREADS = 384;     // a producer and two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 
-// shared-memory geometry of a tile of 128 rows of width D: NB column
+// keys per K and V tile: 128, but 64 at D = 256, where 128-key rings
+// would not fit a block's shared memory (64 + 2 x 64 + 2 x 64 KB) and
+// the 128 accumulator registers of O leave a consumer room for a
+// 64-key S only
+template <int D>
+__host__ __device__ constexpr int bk() { return D >= 256 ? 64 : 128; }
+
+// shared-memory geometry of a tile of ROWS rows of width D: NB column
 // blocks of INNER columns (one TMA box each), rows of ROWB bytes,
 // swizzled over ROWB (the widest swizzle a box can take)
-template <int D>
+template <int D, int ROWS>
 struct Geo {
   static constexpr int INNER = D < 64 ? D : 64;
   static constexpr int ROWB = 2 * INNER;               // 32, 64 or 128
   static constexpr int NB = D / INNER;                  // 2 at D = 128
-  static constexpr int BLOCK = 128 * ROWB;              // bytes a column block
+  static constexpr int BLOCK = ROWS * ROWB;             // bytes a column block
   static constexpr int TILE = NB * BLOCK;               // bytes a tile
   static constexpr uint32_t SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
 };
 
 // the block's shared memory at q.k width D and value width DV: Q, then
 // the K ring, then the V ring; 9 barriers after them. 160 KB at (128,
-// 128), 208 KB at (192, 128)
+// 128), 208 KB at (192, 128), 192 KB at (256, 256)
 template <int D, int DV>
 struct Smem {
-  static constexpr int SK = Geo<D>::TILE;                     // the K ring
-  static constexpr int SV = (1 + STAGES) * Geo<D>::TILE;      // the V ring
-  static constexpr int BAR_OFF = SV + STAGES * Geo<DV>::TILE;
+  using GQ = Geo<D, BQ>;
+  using GK = Geo<D, bk<D>()>;
+  using GV = Geo<DV, bk<D>()>;
+  static constexpr int SK = GQ::TILE;                         // the K ring
+  static constexpr int SV = SK + STAGES * GK::TILE;           // the V ring
+  static constexpr int BAR_OFF = SV + STAGES * GV::TILE;
   static constexpr size_t BYTES = 1024 + BAR_OFF + 9 * 8;  // + alignment slack
 };
 
-// S = Q K^T for one consumer's 64 rows: D / 16 k-steps, both operands
-// K-major; a k-step moves 32 bytes along a swizzled row, then to the
-// next column block
-template <int D>
-__device__ __forceinline__ void qk(float (&s)[64], uint32_t sq, uint32_t sk) {
-  using G = Geo<D>;
+// S = Q K^T for one consumer's 64 rows and the tile's N keys: D / 16
+// k-steps, both operands K-major; a k-step moves 32 bytes along a
+// swizzled row, then to the next column block (Q's and K's blocks
+// differ in height)
+template <int D, int N>
+__device__ __forceinline__ void qk(float (&s)[N / 2], uint32_t sq,
+                                   uint32_t sk) {
+  using GQ = Geo<D, BQ>;
+  using GK = Geo<D, N>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / (G::INNER / 16)) * G::BLOCK +
-                         (kk % (G::INNER / 16)) * 32;
-    wgmma_ss_n128(s, desc(sq + off, 16, 8 * G::ROWB, G::SWZ),
-                  desc(sk + off, 16, 8 * G::ROWB, G::SWZ), kk > 0);
+    const uint32_t blk = kk / (GQ::INNER / 16), col = (kk % (GQ::INNER / 16)) * 32;
+    wgmma_ss<N>(s, desc(sq + blk * GQ::BLOCK + col, 16, 8 * GQ::ROWB, GQ::SWZ),
+                desc(sk + blk * GK::BLOCK + col, 16, 8 * GK::ROWB, GK::SWZ),
+                kk > 0);
   }
 }
 
-// O += P V: 8 k-steps of 16 keys, P from registers, V MN-major (16 key
-// rows a step; its column blocks LBO apart)
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[8][4],
+// O += P V: N / 16 k-steps of 16 keys, P from registers, V MN-major (16
+// key rows a step; its column blocks LBO apart)
+template <int DV, int N>
+__device__ __forceinline__ void pv(float (&o)[DV / 2],
+                                   const uint32_t (&p)[N / 16][4],
                                    uint32_t sv) {
-  using G = Geo<D>;
+  using G = Geo<DV, N>;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs<D>(o, p[kk],
-                desc(sv + kk * 16 * G::ROWB, G::BLOCK, 8 * G::ROWB, G::SWZ),
-                1);
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_rs<DV>(o, p[kk],
+                 desc(sv + kk * 16 * G::ROWB, G::BLOCK, 8 * G::ROWB, G::SWZ),
+                 1);
 }
 
 template <int D, int DV>
@@ -398,9 +423,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ o, long long osb, long long osh,
                long long oss, int B, int H, int G, int S, int Tk,
                int q_tiles, float scale_log2, int causal, int q_offset) {
-  using Geo_ = Geo<D>;      // Q and K tiles
-  using GeoV = Geo<DV>;     // V tiles
+  constexpr int BK = bk<D>();
   using Sm = Smem<D, DV>;
+  using GQ = typename Sm::GQ;   // the Q tile
+  using GK = typename Sm::GK;   // K tiles
+  using GV = typename Sm::GV;   // V tiles
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sK = base + Sm::SK, sV = base + Sm::SV;
@@ -435,23 +462,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<24>();
     if (tid == 0 && n > 0) {
       const int hk = h / G;
-      mbar_expect_tx(bar_q, Geo_::TILE);
-      for (int c = 0; c < Geo_::NB; ++c)
-        tma_load_4d(sQ + c * Geo_::BLOCK, &tq, bar_q, c * Geo_::INNER, q0, h,
-                    b);
+      mbar_expect_tx(bar_q, GQ::TILE);
+      for (int c = 0; c < GQ::NB; ++c)
+        tma_load_4d(sQ + c * GQ::BLOCK, &tq, bar_q, c * GQ::INNER, q0, h, b);
       for (int j = 0; j < n; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) - 1) & 1;
         if (j >= STAGES) mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, Geo_::TILE);
-        for (int c = 0; c < Geo_::NB; ++c)
-          tma_load_4d(sK + s * Geo_::TILE + c * Geo_::BLOCK, &tk,
-                      full_k + 8 * s, c * Geo_::INNER, j * BK, hk, b);
+        mbar_expect_tx(full_k + 8 * s, GK::TILE);
+        for (int c = 0; c < GK::NB; ++c)
+          tma_load_4d(sK + s * GK::TILE + c * GK::BLOCK, &tk, full_k + 8 * s,
+                      c * GK::INNER, j * BK, hk, b);
         if (j >= STAGES) mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, GeoV::TILE);
-        for (int c = 0; c < GeoV::NB; ++c)
-          tma_load_4d(sV + s * GeoV::TILE + c * GeoV::BLOCK, &tv,
-                      full_v + 8 * s, c * GeoV::INNER, j * BK, hk, b);
+        mbar_expect_tx(full_v + 8 * s, GV::TILE);
+        for (int c = 0; c < GV::NB; ++c)
+          tma_load_4d(sV + s * GV::TILE + c * GV::BLOCK, &tv, full_v + 8 * s,
+                      c * GV::INNER, j * BK, hk, b);
       }
     }
   } else {
@@ -461,17 +487,17 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     const int t = tid % 128, lane = t % 32;
     const int r0 = (t / 32) * 16 + lane / 4;  // rows r0 and r0 + 8 of 64
     const int row0 = q0 + 64 * cw + r0;       // query row in the sequence
-    const uint32_t sq = sQ + 64 * cw * Geo_::ROWB;
+    const uint32_t sq = sQ + 64 * cw * GQ::ROWB;
     const bool leader = lane == 0;            // arrives for its warp
 
     float acc[DV / 2];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float s[64];
+    float s[BK / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
-    uint32_t p[8][4];
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    uint32_t p[BK / 16][4];
 
     // s <- exp2((s - m_new) D^-1/2 log2 e) for key tile j, with the
     // running max m updated and l rescaled and summed from the f32 p;
@@ -480,7 +506,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       const int k0 = j * BK;
       if (k0 + BK > Tk || (causal && k0 + BK - 1 > q_offset + q0 + 64 * cw)) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BK / 2; ++i) {
           const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
           const int qpos = q_offset + row0 + 8 * ((i / 2) % 2);
           if (kpos >= Tk || (causal && kpos > qpos)) s[i] = -INFINITY;
@@ -490,7 +516,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 2; ++r) {
         float mx = m[r];
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < BK / 2; ++i)
           if ((i / 2) % 2 == r) mx = fmaxf(mx, s[i]);
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -500,7 +526,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         const float neg = -mu * scale_log2;
         float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < BK / 2; ++i)
           if ((i / 2) % 2 == r) {
             s[i] = ex2(fmaf(s[i], scale_log2, neg));
             sum += s[i];
@@ -510,7 +536,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     };
     auto to_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           p[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
@@ -529,7 +555,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full_k, 0);
       turn_wait();
       wgmma_fence();
-      qk<D>(s, sq, sK);
+      qk<D, BK>(s, sq, sK);
       wgmma_commit();
       turn_pass();
       wgmma_wait<0>();
@@ -545,10 +571,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         fence_operand(acc);
         turn_wait();
         wgmma_fence();
-        qk<D>(s, sq, sK + st * Geo_::TILE);
+        qk<D, BK>(s, sq, sK + st * GK::TILE);
         wgmma_commit();
         mbar_wait(full_v + 8 * sp, ((j - 1) / STAGES) & 1);
-        pv<DV>(acc, p, sV + sp * GeoV::TILE);
+        pv<DV, BK>(acc, p, sV + sp * GV::TILE);
         wgmma_commit();
         turn_pass();
         wgmma_wait<1>();
@@ -567,7 +593,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       fence_operand(acc);
       turn_wait();
       wgmma_fence();
-      pv<DV>(acc, p, sV + sp * GeoV::TILE);
+      pv<DV, BK>(acc, p, sV + sp * GV::TILE);
       wgmma_commit();
       if (cw == 0) turn_pass();   // consumer 0 takes no turn after this
       wgmma_wait<0>();
@@ -616,19 +642,19 @@ EncodeTiled encoder() {
 }
 
 // a 4-D map (D, rows, heads, batch) over a bf16 tensor with the given
-// (row, head, batch) strides in elements, boxes of (INNER, 128, 1, 1),
+// (row, head, batch) strides in elements, boxes of (INNER, BOX, 1, 1),
 // rows past `rows` read as zero
-template <int D>
+template <int D, int BOX>
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads,
                 int batch, long long srow, long long shead, long long sbatch) {
-  using G = Geo<D>;
+  using G = Geo<D, BOX>;
   EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(rows > 0 ? rows : 1),
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)srow * 2, (cuuint64_t)shead * 2,
                                  (cuuint64_t)sbatch * 2};
-  const cuuint32_t box[4] = {G::INNER, BQ, 1, 1};
+  const cuuint32_t box[4] = {G::INNER, BOX, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = G::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -644,9 +670,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int Tk, const long long* st, float scale,
            int causal, int q_offset, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!tensor_map<D>(&mq, q, S, H, B, st[2], st[1], st[0]) ||
-      !tensor_map<D>(&mk, k, Tk, Hkv, B, st[5], st[4], st[3]) ||
-      !tensor_map<DV>(&mv, v, Tk, Hkv, B, st[8], st[7], st[6]))
+  if (!tensor_map<D, BQ>(&mq, q, S, H, B, st[2], st[1], st[0]) ||
+      !tensor_map<D, bk<D>()>(&mk, k, Tk, Hkv, B, st[5], st[4], st[3]) ||
+      !tensor_map<DV, bk<D>()>(&mv, v, Tk, Hkv, B, st[8], st[7], st[6]))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = Smem<D, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
@@ -680,6 +706,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
                               causal, q_offset, stream);
     case widths(192, 128):
       return launch<192, 128>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
+                              causal, q_offset, stream);
+    case widths(256, 256):
+      return launch<256, 256>(q, k, v, o, B, H, Hkv, S, Tk, st, scale,
                               causal, q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;

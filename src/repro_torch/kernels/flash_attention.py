@@ -6,7 +6,8 @@ flash_attention_pallas`, the fast path of the online-softmax attention
 that the prefill of every attention layer runs
 (`repro/models/attention.py:181`, `jnp_flash`), MLA's among them, whose
 q.k width (192: 128 without RoPE, 64 with) differs from its value width
-(128). It is built for the (D, Dv) pairs of `WIDTHS`. A block takes one
+(128), and Gemma's 256-wide heads. It is built for the (D, Dv) pairs
+of `WIDTHS`. A block takes one
 (batch, head, tile of query rows) and loops over the key tiles up to
 its causal limit with the rows' running max, sum and accumulator in
 registers. Two designs, by dtype (the head note of
@@ -15,7 +16,8 @@ registers. Two designs, by dtype (the head note of
 - f32: 64 query rows a block, every product on the CUDA cores (the
   2e-6 bar rules out TF32); bound by its f32 multiply-adds.
 - bf16: 128 query rows a block; a producer warpgroup streams K and V
-  tiles with TMA into a 2-stage ring of shared memory, two consumer
+  tiles (128 keys; 64 at D = 256) with TMA into a 2-stage ring of shared
+  memory, two consumer
   warpgroups form both products with `wgmma` on the tensor cores (bf16
   operands, f32 sums) and overlap the softmax's exps with them; bound by
   the tensor cores. P is rounded to bf16 before P V (ROADMAP C8).
@@ -40,7 +42,7 @@ import torch
 from repro_torch.kernels import build
 
 # the (q.k width D, value width Dv) pairs the kernel is built for
-WIDTHS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+WIDTHS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 launches = 0
 _lib = None
 

@@ -49,7 +49,8 @@ of 16 bytes with the last axis contiguous: a view that breaks the rule
 is copied first. The workspace (lse2 and delta, (B H, S rounded up to
 128) f32 each, then the partials, (B, Hkv, splits, T, D + Dv) f32; 67 MB
 at StarCoder2-3B's train shape) is allocated per call. It is built for
-the (D, Dv) pairs of `flash_attention.WIDTHS` and raises on any other,
+the (D, Dv) pairs of its own `WIDTHS` (K5's but (256, 256), ROADMAP
+queue A item 11e-ii) and raises on any other,
 on a failed build or a failed launch (nothing falls back to the plain
 version, `ref.flash_attention_bwd_ref`).
 
@@ -64,9 +65,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (WIDTHS, _bhs_strides,
-                                                  _like, _tma_strides)
+from repro_torch.kernels.flash_attention import (_bhs_strides, _like,
+                                                  _tma_strides)
 
+# the (q.k width D, value width Dv) pairs the kernel is built for: K5's
+# but (256, 256), which Gemma-7B's training would need (ROADMAP queue A
+# item 11e-ii)
+WIDTHS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 launches = 0
 _lib = None
 
@@ -114,6 +119,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     gradient is laid out like its input (so a transposed view's gradient
     transposes back to a contiguous tensor)."""
     global launches
+    widths = (q.shape[-1], v.shape[-1])
+    if widths not in WIDTHS:
+        raise ValueError(f"flash_attention_bwd_cuda: (D, Dv) = {widths} "
+                         f"must be one of {WIDTHS} (the others, Gemma-7B's "
+                         f"(256, 256) among them, are ROADMAP queue A item "
+                         f"11e-ii)")
     if q.dim() != 4 or not q.is_cuda:
         raise ValueError("flash_attention_bwd_cuda needs q as a (B, H, S, "
                          "D) CUDA tensor")
@@ -124,10 +135,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("k and v must be (B, Hkv, T, D)")
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if (D, Dv) not in WIDTHS or Hkv == 0 or H % Hkv or q_offset < 0:
-        raise ValueError(f"flash_attention_bwd_cuda: (D = {D}, Dv = {Dv}) "
-                         f"must be one of {WIDTHS}, H = {H} a multiple of "
-                         f"Hkv = {Hkv}, q_offset = {q_offset} >= 0")
+    if Hkv == 0 or H % Hkv or q_offset < 0:
+        raise ValueError(f"flash_attention_bwd_cuda: H = {H} must be a "
+                         f"multiple of Hkv = {Hkv}, q_offset = {q_offset} "
+                         f">= 0")
     for t, name, shape in ((k, "k", (B, Hkv, T, D)),
                            (v, "v", (B, Hkv, T, Dv)),
                            (o, "o", (B, H, S, Dv)),

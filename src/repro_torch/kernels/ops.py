@@ -137,7 +137,7 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     """The gradient of `flash_attention` at (q, k, v) for the output
     gradient do, given its output o: (dq, dk, dv) in the inputs' dtype
     (see `ref.flash_attention_bwd_ref`); on CUDA the kernel K7, built
-    for the pairs of `flash_attention.WIDTHS`, each gradient laid out
+    for the pairs of `flash_attention_bwd.WIDTHS`, each gradient laid out
     like its input."""
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, not {q_offset}")

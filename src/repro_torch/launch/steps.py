@@ -4,9 +4,10 @@ step.
 The counterpart of `repro.launch.steps` (`materialize_model`,
 `make_prefill_step`, `make_decode_step`, `make_train_step`). There is no
 sharding and no `jit`: PyTorch runs the steps eagerly on one device, for
-every decoder-only stack `models.lm` builds (Mamba, GQA and MLA mixers;
-dense, MoE or no FFN); the train step for every stack without a Mamba
-mixer (ROADMAP queue A item 11e-ii brings those).
+every stack `models.lm` builds (Mamba, GQA and MLA mixers; dense, MoE or
+no FFN; an encoder-decoder's encoder and cross attention); the train
+step for every decoder-only stack without a Mamba mixer (ROADMAP queue
+A item 11e-ii brings the others).
 """
 from __future__ import annotations
 
@@ -26,12 +27,14 @@ def materialize_model(cfg, seed: int = 0, device=None) -> lm.DecoderLM:
 
 
 def make_prefill_step(model: lm.DecoderLM, *, force: Optional[str] = None):
-    """prefill_step(tokens (B, S), cache) -> (last-token logits
-    (B, 1, V), cache). `force="ref"` runs the plain versions of the
-    prefill kernels (SSD scan, attention, GQA's and MLA's) on any device
-    (for holding the kernels against them)."""
-    def prefill_step(tokens, cache):
-        return lm.forward_prefill(model, tokens, cache, force=force)
+    """prefill_step(tokens (B, S), cache, src_embeds=None) -> (last-token
+    logits (B, 1, V), cache); an encoder-decoder model takes the frame
+    embeddings `src_embeds` (B, S_src, d_model). `force="ref"` runs the
+    plain versions of the prefill kernels (SSD scan, attention, GQA's
+    and MLA's) on any device (for holding the kernels against them)."""
+    def prefill_step(tokens, cache, src_embeds=None):
+        return lm.forward_prefill(model, tokens, cache,
+                                  src_embeds=src_embeds, force=force)
     return prefill_step
 
 

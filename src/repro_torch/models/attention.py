@@ -33,10 +33,19 @@ plain `ref.flash_attention_bwd_ref` on the CPU; `force="ref"` pins the
 plain versions of both). With no input requiring a gradient (serving,
 under `inference_mode`) `attend` is the plain call.
 
+Cross attention (an encoder-decoder's decoder layers, SeamlessM4T):
+`GQAAttention.cross_kv` projects the encoder output once a prefill into
+the layer's "cross_k" and "cross_v" cache (no RoPE, no k-norm), and
+`GQAAttention.cross` attends q (q-normed, no RoPE) to all of its rows,
+non-causal: through `ops.flash_attention` in a prefill (K5 on the card,
+its non-causal branch with S != T), through `decode_attend` in a
+decode step. An encoder's self-attention is the same layer's forward
+with `causal=False`.
+
 Cache layout per layer: {"k", "v": (B, max_len, Hkv, Dh)} for GQA,
 {"ckv": (B, max_len, kv_lora_rank), "krope": (B, max_len,
-rope_head_dim)} for MLA, in the compute dtype. Cross attention (ROADMAP
-queue A item 11f) is not ported.
+rope_head_dim)} for MLA, plus {"cross_k", "cross_v": (B, S_src, Hkv,
+Dh)} in a decoder layer with cross attention, in the compute dtype.
 """
 from __future__ import annotations
 
@@ -73,14 +82,16 @@ class FlashAttention(torch.autograd.Function):
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True,
            force: Optional[str] = None) -> torch.Tensor:
-    """Causal prefill attention from position 0 (the layout of
-    `ops.flash_attention`): through `FlashAttention` when autograd
-    records and an input requires a gradient, else the plain call."""
+    """Prefill attention from position 0, causal unless `causal` is
+    False (the layout of `ops.flash_attention`): through
+    `FlashAttention` when autograd records and an input requires a
+    gradient, else the plain call."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, True, 0, force)
-    return ops.flash_attention(q, k, v, causal=True, force=force)
+        return FlashAttention.apply(q, k, v, causal, 0, force)
+    return ops.flash_attention(q, k, v, causal=causal, force=force)
 
 
 def gqa_init(init: ParamInit, cfg) -> dict:
@@ -131,13 +142,14 @@ class GQAAttention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict] = None, *,
                 kv_len: Optional[int] = None,
-                force: Optional[str] = None):
+                force: Optional[str] = None, causal: bool = True):
         """x: (B, S, d); positions broadcastable to (B, S). Without
         `kv_len` a prefill: k and v fill cache rows [0, S) when `cache`
-        is given, and the causal attention runs through
-        `ops.flash_attention` (`force` pins its path). With `kv_len` (an
-        int) one decode step (S == 1) against `cache`. Returns (out
-        (B, S, d), the cache, updated in place, or None)."""
+        is given, and the attention, causal unless `causal` is False
+        (an encoder's), runs through `ops.flash_attention` (`force` pins
+        its path). With `kv_len` (an int) one decode step (S == 1)
+        against `cache`. Returns (out (B, S, d), the cache, updated in
+        place, or None)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -164,8 +176,41 @@ class GQAAttention(nn.Module):
                 cache["v"][:, :S] = v
                 k, v = cache["k"][:, :S], cache["v"][:, :S]
             o = attend(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), force=force).transpose(1, 2)
+                       v.transpose(1, 2), causal=causal,
+                       force=force).transpose(1, 2)
         return o.reshape(B, S, H * Dh) @ self.wo.flatten(0, 1), cache
+
+    def cross_kv(self, enc_out: torch.Tensor):
+        """The cross-attention k and v (B, S_src, Hkv, Dh) of the encoder
+        output `enc_out` (B, S_src, d): its projections alone, without
+        RoPE or k-norm (the reference's `_fill_cross`)."""
+        B, T, _ = enc_out.shape
+        shape = (B, T, self.cfg.num_kv_heads, self.cfg.head_dim)
+        return ((enc_out @ self.wk.flatten(1)).view(shape),
+                (enc_out @ self.wv.flatten(1)).view(shape))
+
+    def cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              decode: bool = False,
+              force: Optional[str] = None) -> torch.Tensor:
+        """Cross attention (`gqa_apply(cross_kv=(k, v))`): q projected
+        from x (B, S, d) and q-normed under `qk_norm`, without RoPE,
+        attends every row of the encoder's k and v (B, S_src, Hkv, Dh),
+        non-causal: through `ops.flash_attention` in a prefill (`force`
+        pins its path), through `decode_attend` in a decode step
+        (`decode`, S == 1). Returns (B, S, d)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Dh = cfg.num_heads, cfg.head_dim
+        q = (x @ self.wq.flatten(1)).view(B, S, H, Dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.qnorm)
+        if decode:
+            o = decode_attend(q, k, v, k.shape[1])
+        else:
+            o = attend(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=False,
+                       force=force).transpose(1, 2)
+        return o.reshape(B, S, H * Dh) @ self.wo.flatten(0, 1)
 
 
 def mla_init(init: ParamInit, cfg) -> dict:

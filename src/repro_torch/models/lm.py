@@ -1,16 +1,24 @@
 """Top-level language model of the port: embedding, the layer stack,
 head; prefill and decode for serving.
 
-The counterpart of `repro.models.lm` for decoder-only stacks: each
-layer a mixer ("attn" GQA, "mla" DeepSeek-V2's latent attention, or
-"mamba") and an FFN ("dense", gated SwiGLU/GeGLU or the plain MLP;
-"moe"; or "none"), in any mix: pure Mamba (Mamba2-1.3B), dense attention
-(StarCoder2-3B), MoE on every layer (Qwen3-MoE), MLA with a leading
-dense layer (DeepSeek-V2), and the Mamba/attention hybrid with MoE every
-other layer (Jamba). `layer_plan` picks each layer's parts and
-`DecoderLayer` applies them as the reference's `_apply_layer` does. A
-plan with cross attention or an encoder-decoder stack raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+The counterpart of `repro.models.lm`: each layer a mixer ("attn" GQA,
+"mla" DeepSeek-V2's latent attention, or "mamba") and an FFN ("dense",
+gated SwiGLU/GeGLU or the plain MLP; "moe"; or "none"), in any mix:
+pure Mamba (Mamba2-1.3B), dense attention (StarCoder2-3B, Gemma-7B,
+DeepSeek-7B, DeepSeek-Coder-33B, Chameleon-34B), MoE on every layer
+(Qwen3-MoE), MLA with a leading dense layer (DeepSeek-V2), and the
+Mamba/attention hybrid with MoE every other layer (Jamba). `layer_plan`
+picks each layer's parts and `DecoderLayer` applies them as the
+reference's `_apply_layer` does.
+
+An encoder-decoder config (SeamlessM4T) adds an encoder: `enc_layers`
+attention layers, non-causal, over the caller's frame embeddings
+(`src_embeds`, the audio front end's stub) at positions 0..S_src-1,
+then the norm `ln_enc` (`encode`); each decoder layer applies
+`ln_cross` and cross attention to the encoder output between its mixer
+and its FFN. A prefill encodes once and fills each decoder layer's
+"cross_k" and "cross_v" cache (the reference's `_fill_cross`); decode
+steps read them.
 
 Differences of form from the reference, none of substance:
 * the stack is an `nn.ModuleList` run by a Python loop, not a
@@ -60,7 +68,6 @@ from repro_torch.models.common import (ParamInit, compute_dtype,
                                        glu_activation, glu_ffn, mlp_ffn,
                                        rms_norm)
 
-_DENSE = "11f (the catalog's other dense and encoder-decoder models)"
 GATED = ("swiglu", "geglu")   # activations whose dense FFN is `glu_ffn`
 
 
@@ -94,14 +101,20 @@ def period(cfg) -> int:
     return p
 
 
-def _check_plan(cfg, sigs) -> None:
-    """Raise `NotImplementedError` for a plan with cross attention or an
-    encoder-decoder stack, which the port does not run yet."""
-    if cfg.enc_dec or any(cross for _, _, cross in sigs):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks and cross attention are "
-            f"not ported yet (ROADMAP queue A item {_DENSE}); the port runs "
-            f"decoder-only stacks")
+def stack_meta(cfg, decoder: bool) -> dict:
+    """The reference's side table of one stack: its plan ("sigs"), the
+    period (1 for an encoder), the groups and the leading dense layers
+    ("pre_n"); the decoder stack, or with `decoder` False an
+    encoder-decoder config's encoder (`enc_layers` layers)."""
+    L = cfg.num_layers if decoder else cfg.enc_layers
+    p = period(cfg) if decoder else 1
+    pre_n = cfg.first_dense_layers
+    groups, rest = divmod(L - pre_n, p)
+    if rest:
+        raise ValueError(f"{cfg.name}: {L} layers after {pre_n} leading "
+                         f"ones is no multiple of the period {p}")
+    return {"sigs": layer_plan(cfg, L, decoder), "period": p,
+            "groups": groups, "pre_n": pre_n}
 
 
 # ------------------------------------------------------------------ model
@@ -130,14 +143,17 @@ class DenseFFN(nn.Module):
 
 class DecoderLayer(nn.Module):
     """One layer of the reference's `_apply_layer`: x + mixer(rms_norm(x,
-    ln1)), then, with an FFN, x + ffn(rms_norm(x, ln2)). `w` holds the
-    layer's weights in the reference tree's names: ln1 and "attn" (GQA or
-    MLA) or "mamba", plus ln2 and "ffn" (dense) or "moe"."""
+    ln1)), then, with cross attention, x + cross(rms_norm(x, ln_cross)),
+    then, with an FFN, x + ffn(rms_norm(x, ln2)). `w` holds the layer's
+    weights in the reference tree's names: ln1 and "attn" (GQA or MLA)
+    or "mamba", ln_cross and "cross" (GQA) for a cross-attending layer,
+    plus ln2 and "ffn" (dense) or "moe". An encoder's layers are this
+    class too, run with `causal=False`."""
 
     def __init__(self, cfg, sig, w: dict):
         super().__init__()
-        mixer, ffn, _ = sig
-        self.mixer, self.ffn_kind = mixer, ffn
+        mixer, ffn, cross = sig
+        self.mixer, self.ffn_kind, self.has_cross = mixer, ffn, cross
         self.ln1 = _frozen(w["ln1"])
         self.is_attn = mixer != "mamba"
         if mixer == "attn":
@@ -146,6 +162,9 @@ class DecoderLayer(nn.Module):
             self.attn = attn.MLAAttention(cfg, w["attn"])
         else:
             self.mamba = mb.Mamba2Mixer(cfg, w["mamba"])
+        if cross:
+            self.ln_cross = _frozen(w["ln_cross"])
+            self.cross = attn.GQAAttention(cfg, w["cross"])
         self.has_ffn = ffn == "dense"
         if ffn != "none":
             self.ln2 = _frozen(w["ln2"])
@@ -155,14 +174,25 @@ class DecoderLayer(nn.Module):
             self.moe = moe.MoEFFN(cfg, w["moe"])
 
     def forward(self, x, cache=None, *, positions=None,
-                kv_len: Optional[int] = None, force: Optional[str] = None):
+                kv_len: Optional[int] = None, force: Optional[str] = None,
+                causal: bool = True):
+        """`causal` False makes an attention mixer's prefill non-causal
+        (an encoder's); a cross-attending layer reads the "cross_k" and
+        "cross_v" of its `cache`."""
         h = rms_norm(x, self.ln1)
-        if self.is_attn:
+        if self.mixer == "attn":
+            o, cache = self.attn(h, positions, cache, kv_len=kv_len,
+                                 force=force, causal=causal)
+        elif self.is_attn:
             o, cache = self.attn(h, positions, cache, kv_len=kv_len,
                                  force=force)
         else:
             o, cache = self.mamba(h, cache, force=force)
         x = x + o
+        if self.has_cross:
+            x = x + self.cross.cross(rms_norm(x, self.ln_cross),
+                                     cache["cross_k"], cache["cross_v"],
+                                     decode=kv_len is not None, force=force)
         if self.ffn_kind == "dense":
             x = x + self.ffn(rms_norm(x, self.ln2))
         elif self.ffn_kind == "moe":
@@ -172,24 +202,32 @@ class DecoderLayer(nn.Module):
 
 class DecoderLM(nn.Module):
     """Embedding, `num_layers` decoder layers, final norm and head, with
-    every weight in the config's compute dtype. `layers` holds one
-    weight dict per layer (see `DecoderLayer`)."""
+    every weight in the config's compute dtype; for an encoder-decoder
+    config also the encoder's layers and its norm `ln_enc`. `layers`
+    (and `encoder`) hold one weight dict per layer (see
+    `DecoderLayer`)."""
 
-    def __init__(self, cfg, embed, ln_f, head, layers):
+    def __init__(self, cfg, embed, ln_f, head, layers, encoder=(),
+                 ln_enc=None):
         super().__init__()
         self.cfg = cfg
         self.embed = _frozen(embed)
         self.ln_f = _frozen(ln_f)
         self.head = None if head is None else _frozen(head)
-        sigs = layer_plan(cfg, len(layers), False)
+        sigs = layer_plan(cfg, len(layers), True)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, sig, w) for sig, w in zip(sigs, layers))
+        if cfg.enc_dec:
+            esigs = layer_plan(cfg, len(encoder), False)
+            self.encoder = nn.ModuleList(
+                DecoderLayer(cfg, sig, w) for sig, w in zip(esigs, encoder))
+            self.ln_enc = _frozen(ln_enc)
 
 
 def _init_layer(init, cfg, sig) -> dict:
     """One layer's weights for `sig`, drawn through `init` (a `ParamInit`
     or `_NumpyDraws`) at the reference's fan-ins, in its tree's names."""
-    mixer, ffn, _ = sig
+    mixer, ffn, cross = sig
     d, f = cfg.d_model, cfg.d_ff
     w = {"ln1": init.zeros((d,))}
     if mixer == "attn":
@@ -198,6 +236,9 @@ def _init_layer(init, cfg, sig) -> dict:
         w["attn"] = attn.mla_init(init, cfg)
     else:
         w["mamba"] = mb.mamba_init(init, cfg)
+    if cross:
+        w["ln_cross"] = init.zeros((d,))
+        w["cross"] = attn.gqa_init(init, cfg)
     if ffn == "dense":
         w["ln2"] = init.zeros((d,))
         if cfg.activation in GATED:
@@ -217,16 +258,24 @@ def init_model(cfg, *, seed: int = 0, device="cpu") -> DecoderLM:
     """A randomly initialised model (the reference's `ParamFactory`
     scales) drawn from a `torch.Generator` seeded with `seed` on
     `device`, in the config's compute dtype."""
-    sigs = layer_plan(cfg, cfg.num_layers, False)
-    _check_plan(cfg, sigs)
-    init = ParamInit(seed, device, compute_dtype(cfg.dtype))
+    return _build(cfg, ParamInit(seed, device, compute_dtype(cfg.dtype)))
+
+
+def _build(cfg, init) -> DecoderLM:
+    """The model with every weight drawn through `init`, in the
+    reference's order: embed, ln_f, head, the encoder's layers, the
+    decoder's, ln_enc."""
     d = cfg.d_model
     embed = init.embed((cfg.vocab_size, d))
     ln_f = init.zeros((d,))
     head = None if cfg.tie_embeddings else init.dense((d, cfg.vocab_size),
                                                       fan_in=d)
-    layers = [_init_layer(init, cfg, sig) for sig in sigs]
-    return DecoderLM(cfg, embed, ln_f, head, layers)
+    encoder = [_init_layer(init, cfg, sig) for sig in
+               layer_plan(cfg, cfg.enc_layers, False)] if cfg.enc_dec else []
+    layers = [_init_layer(init, cfg, sig)
+              for sig in layer_plan(cfg, cfg.num_layers, True)]
+    ln_enc = init.zeros((d,)) if cfg.enc_dec else None
+    return DecoderLM(cfg, embed, ln_f, head, layers, encoder, ln_enc)
 
 
 # ------------------------------------------------------ weights across
@@ -271,23 +320,19 @@ class _NumpyDraws:
 
 def numpy_params(cfg, seed: int = 0):
     """(params, meta) in the reference's layout — the tree and side table
-    that `repro.models.lm.init_model` returns for a decoder-only config:
-    "embed", "ln_f", "head" and "decoder" = {"prefix": the
-    `first_dense_layers` leading layers, each leaf with a leading axis
-    of 1; "offsets": one tree per offset o in the period, each leaf
-    stacked over the groups of layers pre_n + o + g period} — filled
-    with the reference's scales (fan-in-scaled normal, unit-normal
-    embedding, zeros) as f32 numpy arrays (see `_NumpyDraws` for the
-    draws). The same weights then reach the JAX package (`jnp.asarray`)
-    and the port (`from_reference`) with no jax on the card."""
-    sigs = layer_plan(cfg, cfg.num_layers, False)
-    _check_plan(cfg, sigs)
-    p, pre_n = period(cfg), cfg.first_dense_layers
-    groups, rest = divmod(cfg.num_layers - pre_n, p)
-    if rest:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers after "
-                         f"{pre_n} leading ones is no multiple of the "
-                         f"period {p}")
+    that `repro.models.lm.init_model` returns: "embed", "ln_f", "head"
+    and "decoder" = {"prefix": the `first_dense_layers` leading layers,
+    each leaf with a leading axis of 1; "offsets": one tree per offset o
+    in the period, each leaf stacked over the groups of layers pre_n + o
+    + g period}, and for an encoder-decoder config "encoder" (the same
+    layout, period 1) and "ln_enc" — filled with the reference's scales
+    (fan-in-scaled normal, unit-normal embedding, zeros) as f32 numpy
+    arrays (see `_NumpyDraws` for the draws). The same weights then
+    reach the JAX package (`jnp.asarray`) and the port
+    (`from_reference`) with no jax on the card."""
+    stacks = (("encoder", False), ("decoder", True)) if cfg.enc_dec \
+        else (("decoder", True),)
+    meta = {name: stack_meta(cfg, dec) for name, dec in stacks}
     d = cfg.d_model
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
         draws = _NumpyDraws(seed, pool)
@@ -295,14 +340,18 @@ def numpy_params(cfg, seed: int = 0):
                   "ln_f": draws.zeros((d,))}
         if not cfg.tie_embeddings:
             params["head"] = draws.dense((d, cfg.vocab_size), fan_in=d)
-        draws.lead = (1,)
-        prefix = [_init_layer(draws, cfg, sigs[l]) for l in range(pre_n)]
-        draws.lead = (groups,)
-        offsets = [_init_layer(draws, cfg, sigs[pre_n + o])
-                   for o in range(p)]
-    params["decoder"] = {"prefix": prefix, "offsets": offsets}
-    meta = {"decoder": {"sigs": sigs, "period": p, "groups": groups,
-                        "pre_n": pre_n}}
+        for name, _ in stacks:
+            md = meta[name]
+            sigs, pre_n = md["sigs"], md["pre_n"]
+            draws.lead = (1,)
+            prefix = [_init_layer(draws, cfg, sigs[l]) for l in range(pre_n)]
+            draws.lead = (md["groups"],)
+            offsets = [_init_layer(draws, cfg, sigs[pre_n + o])
+                       for o in range(md["period"])]
+            params[name] = {"prefix": prefix, "offsets": offsets}
+        draws.lead = ()
+        if cfg.enc_dec:
+            params["ln_enc"] = draws.zeros((d,))
     return params, meta
 
 
@@ -314,11 +363,9 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
     `params["decoder"]["prefix"][l]` (leaves with a leading axis of 1);
     layer l >= pre_n is group (l - pre_n) // period of
     `params["decoder"]["offsets"][(l - pre_n) % period]`, whose leaves
-    carry a leading (groups,) axis."""
-    md = meta["decoder"]
-    _check_plan(cfg, md["sigs"])
+    carry a leading (groups,) axis; an encoder-decoder config's encoder
+    layers come from `params["encoder"]` alike."""
     dtype = compute_dtype(cfg.dtype)
-    pre_n, p = md["pre_n"], md["period"]
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32)).to(device, dtype)
@@ -328,17 +375,24 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
             return {k: take(v, g) for k, v in tree.items()}
         return t(tree[g])
 
-    dec = params["decoder"]
-    layers = [take(dec["prefix"][l], 0) for l in range(pre_n)]
-    layers += [take(dec["offsets"][(l - pre_n) % p], (l - pre_n) // p)
-               for l in range(pre_n, len(md["sigs"]))]
+    def stack(name):
+        md, st = meta[name], params[name]
+        pre_n, p = md["pre_n"], md["period"]
+        out = [take(st["prefix"][l], 0) for l in range(pre_n)]
+        return out + [take(st["offsets"][(l - pre_n) % p], (l - pre_n) // p)
+                      for l in range(pre_n, len(md["sigs"]))]
+
     head = params.get("head")
+    enc = cfg.enc_dec
     return DecoderLM(cfg, t(params["embed"]), t(params["ln_f"]),
-                     None if head is None else t(head), layers)
+                     None if head is None else t(head), stack("decoder"),
+                     stack("encoder") if enc else (),
+                     t(params["ln_enc"]) if enc else None)
 
 
 # ---------------------------------------------------------------- training
-_TRAIN = "11e-ii (K4's backward, Mamba2-1.3B and Jamba training)"
+_TRAIN = ("11e-ii (K4's backward, Mamba2-1.3B and Jamba training; "
+          "SeamlessM4T training)")
 
 
 class _MetaInit:
@@ -360,30 +414,30 @@ def skeleton(cfg) -> DecoderLM:
     """The model's structure on the meta device (no storage): what
     `forward_train_loss` runs its layers through, with the parameters
     it is given."""
-    sigs = layer_plan(cfg, cfg.num_layers, False)
-    _check_plan(cfg, sigs)
-    init = _MetaInit(compute_dtype(cfg.dtype))
-    d = cfg.d_model
-    head = None if cfg.tie_embeddings else init.dense((d, cfg.vocab_size),
-                                                      fan_in=d)
-    return DecoderLM(cfg, init.embed((cfg.vocab_size, d)), init.zeros((d,)),
-                     head, [_init_layer(init, cfg, sig) for sig in sigs])
+    return _build(cfg, _MetaInit(compute_dtype(cfg.dtype)))
 
 
 def param_names(cfg) -> list:
     """The model's parameter names in order ("embed", "ln_f", "head",
-    "layers.<l>.<sub>.<leaf>")."""
+    "layers.<l>.<sub>.<leaf>", then "encoder.<l>.<sub>.<leaf>" and
+    "ln_enc" for an encoder-decoder config)."""
     return [n for n, _ in skeleton(cfg).named_parameters()]
 
 
 def check_trainable(cfg) -> None:
-    """Raise `NotImplementedError` for a plan with a Mamba mixer: K4 has
-    no backward yet (ROADMAP queue A item 11e-ii)."""
+    """Raise `NotImplementedError` for a plan with a Mamba mixer (K4 has
+    no backward yet) or an encoder-decoder config (`forward_train_loss`
+    runs no encoder yet): ROADMAP queue A item 11e-ii."""
     if any(mixer == "mamba" for mixer, _, _ in
            layer_plan(cfg, cfg.num_layers, False)):
         raise NotImplementedError(
             f"{cfg.name}: training a Mamba mixer needs the SSD scan's "
             f"backward, not ported yet (ROADMAP queue A item {_TRAIN})")
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder stack needs the "
+            f"encoder and the cross attention in forward_train_loss, not "
+            f"ported yet (ROADMAP queue A item {_TRAIN})")
 
 
 def init_masters(cfg, *, seed: int = 0, device="cpu") -> OrderedDict:
@@ -400,12 +454,14 @@ def _reference_slot(cfg, name: str):
     """(path of keys into the reference tree, index along the stacked
     leaf or None) of port leaf `name`."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if parts[0] not in ("layers", "encoder"):
         return parts, None
-    l, pre_n, p = int(parts[1]), cfg.first_dense_layers, period(cfg)
+    stack = "decoder" if parts[0] == "layers" else "encoder"
+    l, pre_n = int(parts[1]), cfg.first_dense_layers
+    p = period(cfg) if stack == "decoder" else 1
     if l < pre_n:
-        return ["decoder", "prefix", l] + parts[2:], 0
-    return (["decoder", "offsets", (l - pre_n) % p] + parts[2:],
+        return [stack, "prefix", l] + parts[2:], 0
+    return ([stack, "offsets", (l - pre_n) % p] + parts[2:],
             (l - pre_n) // p)
 
 
@@ -500,9 +556,7 @@ def forward_train_loss(model: DecoderLM, params, batch, *,
         return checkpoint(fn, *args, use_reentrant=False) if remat \
             else fn(*args)
 
-    x = w["embed"][tokens]
-    if cfg.scale_embed:
-        x = x * math.sqrt(cfg.d_model)
+    x = _scale_embed(cfg, w["embed"][tokens])
     for l, layer in enumerate(model.layers):
         pre = f"layers.{l}."
         lw = {n[len(pre):]: t for n, t in w.items() if n.startswith(pre)}
@@ -536,11 +590,18 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None):
 
 
 # ------------------------------------------------------------ entry points
+def _scale_embed(cfg, x: torch.Tensor) -> torch.Tensor:
+    """x times sqrt(d_model) under `scale_embed`, the factor rounded to
+    x's dtype first, as the reference's `embed_tokens` does (in bf16,
+    55.5 for Gemma's 55.43), so both give the same bits."""
+    if not cfg.scale_embed:
+        return x
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                            device=x.device)
+
+
 def embed_tokens(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens]
-    if model.cfg.scale_embed:
-        x = x * math.sqrt(model.cfg.d_model)
-    return x
+    return _scale_embed(model.cfg, model.embed[tokens])
 
 
 def lm_logits(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
@@ -548,44 +609,79 @@ def lm_logits(model: DecoderLM, x: torch.Tensor) -> torch.Tensor:
     return x @ (model.embed.T if model.head is None else model.head)
 
 
-def init_cache(cfg, B: int, max_len: int, *, device="cpu"):
+def init_cache(cfg, B: int, max_len: int, *, src_len: int = 0,
+               device="cpu"):
     """Zero decode caches, one dict per layer, in the reference's layout:
     a GQA layer's k and v (B, max_len, Hkv, Dh) and an MLA layer's ckv
     (B, max_len, kv_lora_rank) and krope (B, max_len, rope_head_dim) in
     the compute dtype; a Mamba layer's conv window in the compute dtype
-    and SSD state in f32 (`max_len` does not apply to them)."""
+    and SSD state in f32 (`max_len` does not apply to them); a
+    cross-attending layer's cross_k and cross_v (B, src_len, Hkv, Dh)
+    in the compute dtype besides."""
     dt = compute_dtype(cfg.dtype)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
     caches = []
-    for mixer, _, _ in layer_plan(cfg, cfg.num_layers, False):
+    for mixer, _, cross in layer_plan(cfg, cfg.num_layers, True):
         if mixer == "attn":
             shape = (B, max_len, cfg.num_kv_heads, cfg.head_dim)
-            caches.append({"k": zeros(*shape), "v": zeros(*shape)})
-            continue
-        if mixer == "mla":
-            caches.append({"ckv": zeros(B, max_len, cfg.kv_lora_rank),
-                           "krope": zeros(B, max_len, cfg.rope_head_dim)})
-            continue
-        c_conv = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        caches.append({
-            "conv": zeros(B, cfg.ssm_conv - 1, c_conv),
-            "ssd": torch.zeros(B, cfg.ssm_heads, cfg.ssm_head_dim,
-                               cfg.ssm_state, dtype=torch.float32,
-                               device=device)})
+            c = {"k": zeros(*shape), "v": zeros(*shape)}
+        elif mixer == "mla":
+            c = {"ckv": zeros(B, max_len, cfg.kv_lora_rank),
+                 "krope": zeros(B, max_len, cfg.rope_head_dim)}
+        else:
+            c_conv = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            c = {"conv": zeros(B, cfg.ssm_conv - 1, c_conv),
+                 "ssd": torch.zeros(B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state, dtype=torch.float32,
+                                    device=device)}
+        if cross:
+            shape = (B, src_len, cfg.num_kv_heads, cfg.head_dim)
+            c["cross_k"], c["cross_v"] = zeros(*shape), zeros(*shape)
+        caches.append(c)
     return caches
 
 
+def encode(model: DecoderLM, src_embeds: torch.Tensor, *,
+           force: Optional[str] = None) -> torch.Tensor:
+    """The encoder of an encoder-decoder model (the reference's
+    `encode`): `src_embeds` (B, S_src, d_model) in the compute dtype
+    through its layers, non-causal, at positions 0..S_src-1, then
+    `ln_enc`. `force` pins the attention's path."""
+    x = src_embeds.to(model.embed.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    for layer in model.encoder:
+        x, _ = layer(x, positions=positions, force=force, causal=False)
+    return rms_norm(x, model.ln_enc)
+
+
 def forward_prefill(model: DecoderLM, tokens: torch.Tensor, cache, *,
+                    src_embeds: Optional[torch.Tensor] = None,
                     force: Optional[str] = None):
     """Runs the prompt tokens (B, S) at positions 0..S-1 through the
     stack, filling the cache (attention layers write rows [0, S) of
     theirs in place, Mamba layers return new ones); returns (last-token
-    logits (B, 1, V), cache). `force` pins the path of the prefill
-    kernels (`ops.ssd_scan`, `ops.flash_attention`)."""
+    logits (B, 1, V), cache). An encoder-decoder model first encodes
+    `src_embeds` (B, S_src, d_model; required) and writes each decoder
+    layer's cross_k and cross_v (`init_cache(..., src_len=S_src)`) in
+    place. `force` pins the path of the prefill kernels
+    (`ops.ssd_scan`, `ops.flash_attention`)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    if model.cfg.enc_dec:
+        if src_embeds is None:
+            raise ValueError(f"{model.cfg.name} is an encoder-decoder "
+                             f"model: its prefill takes src_embeds")
+        enc = encode(model, src_embeds, force=force)
+        for layer, c in zip(model.layers, cache):
+            if c["cross_k"].shape[1] != enc.shape[1]:
+                raise ValueError(f"src_embeds of {enc.shape[1]} frames for "
+                                 f"a cache of src_len "
+                                 f"{c['cross_k'].shape[1]}")
+            k, v = layer.cross.cross_kv(enc)
+            c["cross_k"].copy_(k)
+            c["cross_v"].copy_(v)
     x = embed_tokens(model, tokens)
     new = []
     for layer, c in zip(model.layers, cache):
@@ -608,9 +704,9 @@ def forward_decode(model: DecoderLM, tokens: torch.Tensor, cache,
     return lm_logits(model, x), new
 
 
-__all__ = ["DecoderLM", "check_trainable", "embed_tokens",
+__all__ = ["DecoderLM", "check_trainable", "embed_tokens", "encode",
            "forward_decode", "forward_prefill", "forward_train_loss",
            "from_reference", "init_cache", "init_masters", "init_model",
            "layer_plan", "lm_logits", "lm_loss", "masters_from_reference",
            "numpy_params", "param_names", "period", "reference_groups",
-           "reference_leaves", "skeleton"]
+           "reference_leaves", "skeleton", "stack_meta"]

@@ -1297,6 +1297,79 @@ def test_moe_smoke_serve_on_card_matches_plain(cuda, arch, k4, k5):
         assert torch.equal(tok, want_tok)
 
 
+# ---- K5 at (256, 256), non-causal with S != T, G = 7; the dense and ------
+# ---- encoder-decoder models ---------------------------------------------
+
+# (B, H, Hkv, S, T, D, q_offset): K5 at Gemma's (256, 256): ragged S
+# against T > S, a chunk at q_offset 250 and Gemma-7B's prefill shape (4 x
+# 1000 tokens, 16 heads); SeamlessM4T's cross attention (16 decoder rows
+# against 1000 encoder rows, D 64) and a short one; DeepSeek-Coder-33B's
+# G = 7 at its prefill shape and ragged
+DENSE_SHAPES = [(2, 4, 2, 23, 40, 256, 17), (2, 4, 2, 150, 400, 256, 250),
+                (4, 16, 16, 1000, 1000, 256, 0), (4, 16, 16, 16, 1000, 64, 0),
+                (2, 4, 4, 16, 300, 64, 0), (2, 14, 2, 77, 130, 128, 0),
+                (4, 56, 8, 1000, 1000, 128, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,q_offset", DENSE_SHAPES)
+def test_flash_attention_kernel_dense_shapes_match_plain(
+        cuda, B, H, Hkv, S, T, D, q_offset, dtype, causal):
+    """K5 against `flash_attention_ref` at the reference's bars (atol
+    2e-6 f32, 2e-2 bf16), one launch per call: the (256, 256) instance,
+    the non-causal branch with S != T and G = 7."""
+    q, k, v = flash_inputs(B, H, Hkv, S, T, D, seed=S + D, dtype=dtype,
+                           device=cuda)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               force="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, S, D)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,k5", [("gemma-7b", 2), ("deepseek-7b", 2),
+                                     ("deepseek-coder-33b", 2),
+                                     ("chameleon-34b", 2),
+                                     ("seamless-m4t-medium", 6)])
+def test_dense_smoke_serve_on_card_matches_plain(cuda, arch, k5):
+    """The SMOKE dense and encoder-decoder models on the card in f32
+    (SeamlessM4T with 16 frames a request): K5 once per attention in
+    the prefill (SeamlessM4T: 2 encoder layers, 2 decoder
+    self-attentions, 2 cross attentions), nothing else, and the plain
+    path's tokens and logits (1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.lm_serve import ServeSession
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = lm.init_model(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, 256, (4, 40))
+    src = rng.normal(size=(4, 16, cfg.d_model)).astype(np.float32) \
+        if cfg.enc_dec else None
+    runs = {}
+    for force in ("ref", None):
+        sess = ServeSession(arch, max_len=46, force=force, model=model)
+        ops.reset_launches()
+        out = list(sess.stream(prompts, 6, src_embeds=src))
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == (0 if force else k5)
+        assert sum(counts.values()) == counts["flash_attention"]
+        runs[force] = out
+    for (tok, got), (want_tok, want) in zip(runs[None], runs["ref"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert torch.equal(tok, want_tok)
+
+
 # ---- K6: prefix sums in the JAX package's scan order ----------------------
 
 @pytest.mark.gpu

@@ -234,6 +234,20 @@ def test_pool_throughput_driver_on_the_cpu(bench_json, monkeypatch):
     assert [r["bench"] for r in saved] == ["pool_throughput"]
 
 
+def test_pool_throughput_driver_without_cold_passes(bench_json,
+                                                    monkeypatch):
+    """`--no-cold` drives the two warm passes only: the gates hold and
+    the record has no compile time to report."""
+    from benchmarks import torch_pool_throughput as drv
+
+    monkeypatch.setenv("SAATH_POOL_MIN_SPEEDUP", "0.05")
+    rec = drv.main(["--device", "cpu", "--sessions", "2", "--coflows",
+                    "2", "--no-cold"])
+    assert rec["full_uploads"] == 1 and rec["sessions"] == 2
+    assert rec["compile_pool"] is None and rec["compile_sequential"] is None
+    assert rec["build_seconds"] == 0.0
+
+
 def test_pool_throughput_workload_is_the_reference_workload():
     from benchmarks import pool_throughput as ref
     from benchmarks import torch_pool_throughput as drv

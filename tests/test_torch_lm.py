@@ -14,8 +14,8 @@ about one mixer runs for both architectures (`ARCHS`).
   port (the contract of `tests/test_arch_smoke.py:72`);
 * `ServeSession(..., device="cpu")` generates the JAX `ServeSession`'s
   tokens from the same converted weights;
-* architectures and layer plans the port does not run raise
-  `NotImplementedError`;
+* the constructors that raised before the other dense and
+  encoder-decoder models were ported build what they name;
 * the port on the CPU reproduces `tests/data/torch_port_mamba2_golden.
   json` and `torch_port_starcoder2_golden.json`, the full-width
   references `chip_smoke.py` holds the card to; `slow` tests regenerate
@@ -298,21 +298,41 @@ def test_serve_session_defaults_and_limits(arch):
         sess.generate(np.zeros((4, 120), np.int64), 9)
 
 
-@pytest.mark.parametrize("make", [
-    lambda: lm_serve.ServeSession("gemma-7b", device="cpu"),
-    lambda: get_smoke_config("seamless-m4t-medium"),
-    lambda: lm.init_model(dataclasses.replace(
-        get_smoke_config(ARCH), enc_dec=True, enc_layers=2)),
-    lambda: get_config("deepseek-7b"),
-    lambda: get_config("gemma-7b"),
-    lambda: lm.from_reference({}, {"decoder": {
-        "sigs": [("attn", "dense", True)]}}, get_smoke_config(ATTN_ARCH)),
-    lambda: lm.numpy_params(dataclasses.replace(
-        get_smoke_config(ATTN_ARCH), enc_dec=True, enc_layers=2)),
+def _enc_dec(arch):
+    """`arch`'s SMOKE config made an encoder-decoder of 2 + 2 layers."""
+    return dataclasses.replace(get_smoke_config(arch), enc_dec=True,
+                               enc_layers=2)
+
+
+def _has_encoder_and_cross(model):
+    return (len(model.encoder) == 2 and all(
+        layer.has_cross for layer in model.layers))
+
+
+@pytest.mark.parametrize("make,check", [
+    (lambda: lm_serve.ServeSession("gemma-7b", device="cpu"),
+     lambda s: s.cfg.name == "gemma-7b" and s.model.head is None
+     and s.cfg.head_dim == 32 and len(s.model.layers) == 2),
+    (lambda: get_smoke_config("seamless-m4t-medium"),
+     lambda c: c.enc_dec and c.enc_layers == 2 and c.num_layers == 2),
+    (lambda: lm.init_model(_enc_dec(ARCH)), _has_encoder_and_cross),
+    (lambda: get_config("deepseek-7b"),
+     lambda c: (c.num_layers, c.num_heads, c.num_kv_heads) == (30, 32, 32)),
+    (lambda: get_config("gemma-7b"),
+     lambda c: c.head_dim == 256 and c.tie_embeddings and c.scale_embed),
+    (lambda: lm.from_reference(*lm.numpy_params(_enc_dec(ATTN_ARCH)),
+                               _enc_dec(ATTN_ARCH)), _has_encoder_and_cross),
+    (lambda: lm.numpy_params(_enc_dec(ATTN_ARCH)),
+     lambda pm: {"encoder", "decoder", "ln_enc"} <= set(pm[0])
+     and "cross" in pm[0]["decoder"]["offsets"][0]
+     and pm[1]["decoder"]["sigs"] == [("attn", "dense", True)] * 2
+     and pm[1]["encoder"]["sigs"] == [("attn", "dense", False)] * 2),
 ])
-def test_unported_architectures_raise(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        make()
+def test_unported_architectures_raise(make, check):
+    """The constructors that raised before the catalog's other dense and
+    encoder-decoder models were ported (ROADMAP queue A item 11f) now
+    build what they name."""
+    assert check(make())
 
 
 def golden_model(gold, device="cpu", arch=ARCH):

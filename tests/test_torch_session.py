@@ -31,12 +31,12 @@ from repro.core.params import SchedulerParams as JParams
 from repro.fabric.state import FlowTable as JFlowTable
 from repro.traces import batch as jbatch
 from repro_torch.api import Scenario, SaathSession, SessionPool, run
-from repro_torch.configs import get_config
 from repro_torch.core.coflow import Coflow, Flow, Trace
 from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric import engine
 from repro_torch.fabric.state import FlowTable
 from repro_torch.fabric.topology import LeafSpine
+from repro_torch.launch.train import train
 from repro_torch.traces import batch as pbatch
 
 from tests.test_session import (PARAMS as JPARAMS, PORTS,
@@ -232,7 +232,8 @@ def test_session_rejects_bad_input():
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda: get_config("gemma-7b"), "item 11f"),
+    (lambda: train("seamless-m4t-medium", steps=1, device="cpu"),
+     "11e-ii"),
     (lambda: SessionPool(PARAMS, num_ports=4, shards=2, device="cpu"),
      "item 8"),
 ])

@@ -15,8 +15,9 @@ unless said, on the same weights (`lm.numpy_params`) and batches:
   state): losses, grad norms, masters and moments; k = 2 microbatches;
 * the counterparts of `tests/test_train_loop.py`'s `test_loss_decreases`
   and `test_checkpoint_restart_bitwise` (each a few seconds here), the
-  coflow plan of the gradient buckets, the archs that raise, and an
-  import of the train path that loads no jax;
+  coflow plan of the gradient buckets, the archs that raise (K7's
+  (256, 256), an encoder-decoder), Gemma-7B's and Chameleon-34B's SMOKE
+  losses, and an import of the train path that loads no jax;
 * the golden `chip_smoke.py` holds the card to
   (`tests/data/torch_port_train_starcoder2_golden.json`: StarCoder2-3B at
   its published width, 2 layers, f32, 3 AdamW steps of batch 2 x 128):
@@ -47,6 +48,7 @@ from repro.optim import make_optimizer as jmake_optimizer
 from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.launch import steps as ST
 from repro_torch.launch.train import train
 from repro_torch.models import lm
@@ -256,8 +258,35 @@ def test_mamba_archs_raise(arch):
 
 
 def test_archs_not_served_yet_raise():
-    with pytest.raises(NotImplementedError, match="11f"):
-        train("gemma-7b", steps=1, device="cpu")
+    """What training still lacks after the other dense and
+    encoder-decoder models (ROADMAP queue A item 11e-ii): K7 refuses
+    Gemma-7B's (256, 256) heads before it looks at the device, and an
+    encoder-decoder config raises."""
+    q = torch.zeros(1, 2, 8, 256)
+    with pytest.raises(ValueError, match="11e-ii"):
+        flash_attention_bwd_cuda(q, q, q, q, q)
+    with pytest.raises(NotImplementedError, match="11e-ii"):
+        ST.make_train_step(get_smoke_config("seamless-m4t-medium"),
+                           make_optimizer(get_smoke_config("starcoder2-3b")))
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "chameleon-34b"])
+def test_dense_smoke_losses_match_jax(arch):
+    """Gemma-7B (tied and scaled embeddings, GeGLU, head_dim 32 at SMOKE)
+    and Chameleon-34B (qk-norm) SMOKE losses against the reference's
+    `forward_train_loss` at the train golden's bar (rtol 1e-5), f32 and
+    in the config's bf16 (rtol 2e-2, one bf16 rounding of the loss's
+    terms)."""
+    for dtype, rtol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+        cfg, jc = _configs(arch, dtype=dtype)
+        params, meta = lm.numpy_params(cfg, seed=0)
+        (b,) = _batches(cfg, 2, 48, 1, seed=1)
+        masters = lm.masters_from_reference(params, cfg)
+        loss = lm.forward_train_loss(lm.skeleton(cfg), masters,
+                                     _port_batch(b))
+        jloss = jlm.forward_train_loss(jc, jax.tree.map(jnp.asarray, params),
+                                       meta, _jax_batch(b), PAR)
+        _close(loss, jloss, rtol, f"{arch} {dtype} loss")
 
 
 def test_train_path_imports_no_jax():
