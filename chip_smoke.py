@@ -22,11 +22,13 @@ hybrid) served at their published widths with every expert and the
 depth cut, then StarCoder2-3B trained at its published width
 through `repro_torch.launch.train.train`, and last Gemma-7B, DeepSeek-7B,
 DeepSeek-Coder-33B, Chameleon-34B and the encoder-decoder
-SeamlessM4T-medium served at their published widths and depths — and
-holds each hand-written CUDA kernel of those paths against its plain
-PyTorch version on the same inputs:
+SeamlessM4T-medium served at their published widths and depths, and
+last Mamba2-1.3B, Jamba-v0.1-52B (one period, 2 of its 16 experts) and
+SeamlessM4T-medium trained at their published widths — and holds each
+hand-written CUDA kernel of those paths against its plain PyTorch
+version on the same inputs:
 
-1. the card's name and power limit; build the seven kernels with nvcc
+1. the card's name and power limit; build the eight kernels with nvcc
    (`src/repro_torch/kernels/csrc/`, sm_90a, one nvcc per source, all
    started together) and print nvcc's register and shared-memory
    report and the build time;
@@ -389,7 +391,38 @@ PyTorch version on the same inputs:
    then a bf16 pair of each at 4 layers (SeamlessM4T 4 + 4) from
    `lm.init_model`, the plain attention against K5, logits within C5's
    0.1, Gemma-7B's (tied embedding) each w within 0.1 + 2^-6 (|w| + the
-   RMS of its row) (ROADMAP C15).
+   RMS of its row) (ROADMAP C15);
+31. training through the Mamba mixer and the encoder (`train_ssm_phase`):
+   K8 (the SSD scan's backward: the chunk states swept forward, their
+   gradients swept in reverse, every chunk's gradients, the heads' sums;
+   four launches counted as one call) against `ssd_chunked_bwd_ref` at
+   `SSD_CASES`, Mamba2-1.3B's train shape (4, 2048, 64, G 1, 64, N 128,
+   lc 128) and Jamba's microbatch shape (1, 1024, 128, 1, 64, 16, 128),
+   f32 and bf16, each gradient (da included) within K4's bar, atol 5e-4
+   of its largest magnitude (`ssd_err`), a second call bitwise equal;
+   its time at the two train shapes beside the plain version's and the
+   bound (`ssd_bwd_bound_ms`; library null), with its workspaces'
+   bytes; K5 and K7 non-causal at SeamlessM4T's cross attention in
+   training (1, 16, 16, 2048, 32, 64), S > T under one key tile; the
+   train goldens (`SSM_GOLDENS`, the JAX package on the CPU:
+   Mamba2-1.3B, 2 layers, 2 x 256 tokens; SeamlessM4T-medium, 2 + 2
+   layers, 4 x 128 tokens against 32 frames; published widths, f32, 3
+   AdamW steps) with the kernels and with `force="ref"`: losses rtol
+   1e-5, grad norms 1e-4, every master leaf's norm 1e-5; the three main
+   train paths through `train(arch, smoke=False, device="cuda")`
+   (`SSM_TRAIN`: Mamba2-1.3B, 48 layers, 4 x 2048; Jamba one period of 8
+   layers with 2 of its 16 routed experts, top-2 kept, 8 microbatches of
+   1 x 1024, bf16 moments; SeamlessM4T 12 + 12 layers, 4 microbatches
+   of 1 x 2048 against 32 frames), bf16 on f32 masters, AdamW,
+   `SSM_TRAIN_STEPS` steps with the coflow plan, counters set to 0 just
+   before and read just after: the loss falls by the reference's bar,
+   each step launches `train_launches` (K4 twice and K8 once a Mamba
+   layer, K5 twice and K7 once an attention, per microbatch) and the
+   plan K1, K2 and K6, and nothing else; ms a step, tokens/s and peak
+   memory; then bf16 pairs (`ssm_bf16_pair`: 2 layers, SeamlessM4T 2 +
+   2, Jamba the main path's period and experts; loss within 2e-2, leaf
+   norms rtol 2e-2, Jamba's layer by layer on the same input, and its
+   whole stack in f32 at rtol 1e-4).
 
 Each phase prints its seconds (`[n] phase seconds`).
 
@@ -397,19 +430,20 @@ Kernel times are device times (`cuda_ms`: a sleep kernel holds the
 stream while the timed calls queue, so a kernel faster than its
 wrapper's host work does not read as that host work). Prints a
 `{"kernels": [...]}` line (`launches` = launches over the
-twenty-two main-path runs, split by path in `launches_by_path`; K4's,
-K5's, K6's and K7's records also list further timed shapes under
-`shapes`, K7's the train path's step time under `train`), the
-script's
-wall, the nvidia-smi line, and as the last line `{"ok": true, "device":
-{...}}`.
+twenty-three main-path runs, split by path in `launches_by_path`, the
+three train paths of phase 31 summed under `train_ssm`; K4's, K5's,
+K6's, K7's and K8's records also list further timed shapes under
+`shapes`, K7's and K8's their train paths' step times under `train`),
+the script's wall, the nvidia-smi line, and as the last line `{"ok":
+true, "device": {...}}`.
 Any failed phase exits non-zero before the result lines. Exits non-zero
 without a CUDA device.
 
 `python3 chip_smoke.py --profile` adds one profiled chunk of each fleet
 path (`profile_chunk`) and one profiled prefill and 16 decode steps of
 each serve path (`profile_serve`) and one profiled warm train step
-(`profile_train`): wall time per event step, prefill, token or train
+of StarCoder2-3B and of Mamba2-1.3B (`profile_train`): wall time per
+event step, prefill, token or train
 step, device busy share, kernel launches and the kernels with the most
 device time.
 """
@@ -523,8 +557,11 @@ HOST_WORKERS = 8
 # K7's kernels, both instances (the head split's sum only when it splits)
 K7_KERNELS = ("bwd_stats_sm90<", "bwd_dkdv_sm90<", "bwd_dq_sm90<",
               "bwd_stats_f32<", "bwd_dkdv_f32<", "bwd_dq_f32<", "bwd_sum<")
+# K8's kernels
+K8_KERNELS = ("ssd_bwd_sweep<", "ssd_bwd_chunk<", "ssd_bwd_reduce<")
 PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
-                "ssd_gram<", "flash_fwd", "prefix_sum_kernel") + K7_KERNELS
+                "ssd_gram<", "flash_fwd", "prefix_sum_kernel") + K7_KERNELS \
+    + K8_KERNELS
 # phase 21: the reference's pool-throughput gate (benchmarks/
 # pool_throughput.py:236), read here, not gated
 POOL_GATE = 4.0
@@ -596,6 +633,32 @@ TRAIN_GOLDEN = ROOT / "tests" / "data" / \
 # the main train path: StarCoder2-3B at its published width and depth
 # (30 layers), bf16 on f32 masters, AdamW, batch x seq tokens a step
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 20
+# phase 31: training through the Mamba mixer and the encoder. K8 (the SSD
+# scan's backward) at SSD_CASES, Mamba2-1.3B's train shape (4 x 2048
+# tokens) and Jamba's microbatch shape (1 x 1024 tokens, H 128, N 16);
+# K4's bar, atol 5e-4 of each gradient's largest magnitude
+SSD_BWD_TRAIN = (4, 2048, 64, 1, 64, 128, 128)
+SSD_BWD_JAMBA = (1, 1024, 128, 1, 64, 16, 128)
+SSD_BWD_ATOL = 5e-4
+# the train goldens (the JAX package on the CPU, published widths, 2
+# layers, SeamlessM4T 2 + 2; tests/test_torch_train_ssm.py regenerates
+# them)
+SSM_GOLDENS = {"mamba2-1.3b": "torch_port_train_mamba2_golden.json",
+               "seamless-m4t-medium": "torch_port_train_seamless_golden.json"}
+# the main train paths: (batch, seq, config cuts); bf16 on f32 masters,
+# the configs' optimizers and microbatches, SSM_TRAIN_STEPS steps (the
+# fewest the loss bar reads: the mean of the first 5 against the last 5).
+# Jamba: one period (8 layers), routed experts cut from 16 to 2 (top-2
+# kept), so that f32 masters, gradients and bf16 moments fit one card
+SSM_TRAIN = {"mamba2-1.3b": (4, 2048, {}),
+             "jamba-v0.1-52b": (8, 1024, {"num_layers": 8,
+                                          "num_experts": 2}),
+             "seamless-m4t-medium": (4, 2048, {})}
+SSM_TRAIN_STEPS = 10
+# the bf16 pairs' depth (Jamba: the main path's period and experts)
+SSM_PAIR_CUTS = {"mamba2-1.3b": {"num_layers": 2},
+                 "jamba-v0.1-52b": {"num_layers": 8, "num_experts": 2},
+                 "seamless-m4t-medium": {"num_layers": 2, "enc_layers": 2}}
 
 
 def fail(msg):
@@ -905,14 +968,16 @@ def profile_serve(sess, prompts, n_decode=16, src=None):
         report_profile(prof, wall, n_decode, "token")
 
 
-def profile_train(warm_steps=2):
-    """(`--profile` only) Where the train step's time goes: StarCoder2-3B
-    at its published width, as the main train path runs it (bf16 on f32
-    masters, AdamW, `TRAIN_BATCH` x `TRAIN_SEQ` tokens), `warm_steps`
-    steps unprofiled, then one step under torch.profiler: its wall time,
-    device busy share, the kernels with the most device time and each of
-    the port's kernels (K5 `flash_fwd`, K7 `K7_KERNELS`) with its share
-    of the busy time, and K7's total a step split by launch."""
+def profile_train(warm_steps=2, arch=ATTN_ARCH, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, split=("K7", K7_KERNELS)):
+    """(`--profile` only) Where the train step's time goes: `arch`
+    (StarCoder2-3B unless given) at its published width, as its main
+    train path runs it (bf16 on f32 masters, the config's optimizer,
+    `batch` x `seq` tokens), `warm_steps` steps unprofiled, then one step
+    under torch.profiler: its wall time, device busy share, the kernels
+    with the most device time and each of the port's kernels with its
+    share of the busy time, and the total a step of the kernel `split`
+    names (K7 unless given), split by launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -923,22 +988,22 @@ def profile_train(warm_steps=2):
     from repro_torch.optim import make_optimizer
 
     dev = torch.device("cuda")
-    cfg = get_config(ATTN_ARCH)
+    cfg = get_config(arch)
     params = lm.init_masters(cfg, seed=0, device=dev)
     opt = make_optimizer(cfg, total_steps=warm_steps + 1,
                          groups=lm.reference_groups(cfg, list(params)))
     opt_state = opt.init(params)
     step_fn = ST.make_train_step(cfg, opt)
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+    data = SyntheticLMData(cfg.vocab_size, seq, batch, seed=0,
                            d_model=cfg.d_model, device=dev)
 
-    def batch(step):
+    def rows(step):
         tokens = data.batch(step)["tokens"]
         return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
     for step in range(warm_steps):
-        params, opt_state, _ = step_fn(params, opt_state, step, batch(step))
-    b = batch(warm_steps)
+        params, opt_state, _ = step_fn(params, opt_state, step, rows(step))
+    b = rows(warm_steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -947,19 +1012,21 @@ def profile_train(warm_steps=2):
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"[p] train step of {cfg.num_layers} layers, {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens, after {warm_steps}: wall {1e3 * wall:.3f} "
+    print(f"[p] {arch} train step of {cfg.num_layers} layers, {batch} x "
+          f"{seq} tokens, after {warm_steps}: wall {1e3 * wall:.3f} "
           f"ms (profiled)")
     got = report_profile(prof, wall, 1, "step")
     if got is not None:
-        rows, busy_us = got
-        k7 = [e for e in rows if any(k in e.key for k in K7_KERNELS)]
-        t = sum(e.self_device_time_total for e in k7)
-        print(f"[p] K7 a step: {t / 1e3:.3f} ms, {t / busy_us:.3f} of busy "
-              f"({sum(e.count for e in k7)} kernel launches); by launch: "
+        found, busy_us = got
+        name, keys = split
+        ks = [e for e in found if any(k in e.key for k in keys)]
+        t = sum(e.self_device_time_total for e in ks)
+        print(f"[p] {name} a step: {t / 1e3:.3f} ms, {t / busy_us:.3f} of "
+              f"busy ({sum(e.count for e in ks)} kernel launches); by "
+              f"launch: "
               + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
                           f"{e.self_device_time_total / busy_us:.3f}"
-                          for e in sorted(k7, key=lambda e:
+                          for e in sorted(ks, key=lambda e:
                                           -e.self_device_time_total)),
               flush=True)
     del params, opt_state, step_fn, prof
@@ -3800,6 +3867,496 @@ def dense_phase(tag):
     return shapes, counts
 
 
+K8_GRADS = ("dx", "ddt", "da", "db", "dc")
+# K5 and K7 at SeamlessM4T's cross attention in training (a microbatch
+# of one row: 2048 decoder rows against 32 frames, under one key tile)
+SEAMLESS_TRAIN_CROSS = (1, 16, 16, 2048, 32, 64, 64, 0)
+
+
+def ssd_bwd_bound_ms(shape, elt):
+    """Of K8 at `shape` (B, L, H, G, Dh, N, lc). Bytes: x, dt, b, c and dy
+    read once, dx, ddt, db and dc written once (elt bytes an element),
+    a read and da written once (f32). Operations (multiply-adds) for
+    these chunk lengths (the ragged last one unpadded; tri = the causal
+    pairs u <= t of every chunk): per (batch, group) G = c b^T (tri x
+    N), per (batch, head) dM = dY X^T (tri x Dh), both of the inputs
+    alone, at the bf16 tensor-core rate for bf16 inputs; then M^T dY (tri
+    x Dh), dG B and dG^T C (tri x N each) and the six L x Dh x N products
+    (the chunk states, their gradients, B dS^T, dY S, X dS and (e dY)^T
+    C), at the f32 rate (M, dG, S and dS are f32). Returns (ms, what
+    bounds it, multiply-adds)."""
+    B, L, H, G, Dh, N, lc = shape
+    nbytes = 2 * elt * (2 * B * L * H * Dh + B * L * H + 2 * B * L * G * N) \
+        + 8 * H
+    lens = [min(lc, L - j) for j in range(0, L, lc)]
+    tri = sum(n * (n + 1) // 2 for n in lens)
+    of_inputs = B * G * tri * N + B * H * tri * Dh
+    of_f32 = B * H * (tri * (Dh + 2 * N) + 6 * L * Dh * N)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = 2 * of_inputs / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) \
+        + 2 * of_f32 / F32_OPS_PER_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            of_inputs + of_f32)
+
+
+def k8_check(tag, shape, dtype, dev):
+    """K8 at `shape` against `ssd_chunked_bwd_ref`: fails past K4's bar
+    (`ssd_err`, atol `SSD_BWD_ATOL` of each gradient's largest magnitude,
+    da included), or unless a second call gives the same bits. Returns
+    (inputs, dy, {gradient: (max |difference|, max |plain gradient|)})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, L, H, G, Dh, N, lc = shape
+    args = ssd_inputs(shape, dtype, L + H, dev)
+    dy = torch.as_tensor(np.random.default_rng(L + H + 1).normal(
+        size=(B, L, H, Dh)), dtype=dtype, device=dev)
+    got = ops.ssd_scan_bwd(*args, dy, lc=lc)
+    again = ops.ssd_scan_bwd(*args, dy, lc=lc)
+    want = ops.ssd_scan_bwd(*args, dy, lc=lc, force="ref")
+    torch.cuda.synchronize()
+    per = {}
+    for name, g, g2, w, x in zip(K8_GRADS, got, again, want, args):
+        m = float(w.float().abs().max())
+        ok, e = ssd_err(g, w, SSD_BWD_ATOL * m)
+        per[name] = (e, m)
+        if not ok or g.dtype != x.dtype or g.shape != x.shape:
+            fail(f"[{tag}] K8 disagrees with ssd_chunked_bwd_ref at {shape} "
+                 f"{dtype}: {name} max abs error {e:.3e} (atol "
+                 f"{SSD_BWD_ATOL * m:.3e})")
+        if not torch.equal(g, g2):
+            fail(f"[{tag}] two K8 calls at {shape} {dtype} gave different "
+                 f"{name}")
+    return args, dy, per
+
+
+def k8_shape_record(tag, shape, dtype, dev, what):
+    """K8 at `shape` within its bar, then its time beside the plain
+    version's and the bound (no single PyTorch call computes this
+    gradient: library null), with its workspaces' bytes. Returns the
+    record for the kernels line's `shapes`."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan_bwd import workspace
+
+    B, L, H, G, Dh, N, lc = shape
+    args, dy, per = k8_check(tag, shape, dtype, dev)
+    bnd, by, macs = ssd_bwd_bound_ms(shape, args[0].element_size())
+    ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, dy, lc=lc), 5)
+    plain = cuda_ms(lambda: ops.ssd_scan_bwd(*args, dy, lc=lc,
+                                             force="ref"), 2)
+    ws = workspace(B, L, H, Dh, N, lc)
+    err = max(e for e, _ in per.values())
+    print(f"[{tag}] K8 at {what} {shape} {str(dtype)[6:]}: kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, library null (no single PyTorch call "
+          f"computes the SSD scan's gradient), bound {bnd:.4f} ms ({by}; "
+          f"{macs / 1e9:.2f} G multiply-adds), {bnd / ms:.2%} of the bound, "
+          f"{2 * macs / ms / 1e9:.1f} TFLOP/s; two calls bitwise equal; max "
+          f"|difference| / max |gradient| "
+          + ", ".join(f"{n} {e:.4e} / {m:.4e}" for n, (e, m) in per.items())
+          + "; workspaces " + ", ".join(f"{k} {v / 1e6:.1f} MB"
+                                        for k, v in ws.items())
+          + f"; {smi()}", flush=True)
+    del args, dy
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "max_abs_err": err,
+            "max_abs": {n: list(em) for n, em in per.items()},
+            "workspace_bytes": ws}
+
+
+def train_launches(cfg):
+    """{kernel: launches} of one train step of `cfg`: per microbatch, K4
+    for each Mamba layer and K5 for each attention (decoder self, cross,
+    encoder; `expected_launches`), twice under remat (the backward
+    recomputes the forward), and K8 and K7 once each; every other kernel
+    0."""
+    want = expected_launches(cfg)
+    k = max(cfg.train_microbatches, 1)
+    fwd = 1 if cfg.remat == "none" else 2
+    mixers = {"ssd_scan": "ssd_scan_bwd",
+              "flash_attention": "flash_attention_bwd"}
+    for f, b in mixers.items():
+        want[b] = k * want[f]
+        want[f] = fwd * k * want[f]
+    return want
+
+
+def ssm_batch(data, step):
+    """Batch `step` of `data` as the train loop cuts it."""
+    a = data.batch(step)
+    b = {"tokens": a["tokens"][:, :-1], "labels": a["tokens"][:, 1:]}
+    if "src_embeds" in a:
+        b["src_embeds"] = a["src_embeds"]
+    return b
+
+
+def ssm_golden(tag, arch, params, gold, force):
+    """Phase 31's golden run of `arch` (as `train_golden`): the golden's
+    config cuts, the reference tree `params` (`numpy_params`), its steps
+    of AdamW through `make_train_step` on the card (`force` "ref" pins
+    the plain versions), losses rtol 1e-5, grad norms rtol 1e-4, every
+    master leaf's f64 norm after the last step rtol 1e-5; the kernels
+    launched `train_launches` a step (none with "ref")."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(get_config(arch), **gold["config_cuts"])
+    masters = lm.masters_from_reference(params, cfg, device="cuda")
+    opt = make_optimizer(cfg, total_steps=gold["steps"],
+                         groups=lm.reference_groups(cfg))
+    state = opt.init(masters)
+    step_fn = ST.make_train_step(cfg, opt, force=force)
+    data = SyntheticLMData(cfg.vocab_size, gold["seq"], gold["batch"],
+                           seed=gold["seed"], src_len=gold["src_len"],
+                           d_model=cfg.d_model, device="cuda")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "leaf": 0.0}
+
+    def within(what, got, want, rtol, key):
+        rel = abs(got - want) / abs(want)
+        worst[key] = max(worst[key], rel)
+        if rel > rtol:
+            fail(f"[{tag}] {arch}'s train golden ({force or 'kernels'}): "
+                 f"{what} {got!r} against {want!r} (rtol {rtol})")
+
+    ops.reset_launches()
+    for step in range(gold["steps"]):
+        masters, state, m = step_fn(masters, state, step,
+                                    ssm_batch(data, step))
+        within(f"loss at step {step}", float(m["loss"]),
+               gold["losses"][step], 1e-5, "loss")
+        within(f"grad_norm at step {step}", float(m["grad_norm"]),
+               gold["grad_norms"][step], 1e-4, "grad_norm")
+    counts = ops.launch_counts()
+    if sorted(gold["leaf_norms"]) != sorted(masters):
+        fail(f"[{tag}] {arch}'s golden leaves are not the masters'")
+    for n, t in masters.items():
+        within(f"the norm of {n}",
+               float(torch.linalg.vector_norm(t.detach().double())),
+               gold["leaf_norms"][n], 1e-5, "leaf")
+    want = {n: 0 for n in counts}
+    if force is None:
+        want = {n: v * gold["steps"] for n, v in train_launches(cfg).items()}
+    if counts != want:
+        fail(f"[{tag}] {arch}'s golden run ({force or 'kernels'}) launched "
+             f"{counts}; expected {want}")
+    print(f"[{tag}] {arch} train golden ({force or 'kernels'}): "
+          f"{gold['steps']} AdamW steps at full width, "
+          f"{gold['config_cuts']}, {gold['batch']} x {gold['seq']} tokens"
+          + (f" against {gold['src_len']} frames" if gold["src_len"] else "")
+          + f": losses {[round(x, 6) for x in gold['losses']]} held; "
+          f"largest relative gaps: loss {worst['loss']:.2e} (bar 1e-5), "
+          f"grad_norm {worst['grad_norm']:.2e} (bar 1e-4), leaf norms "
+          f"{worst['leaf']:.2e} (bar 1e-5); launches "
+          f"{ {n: v for n, v in counts.items() if v} }", flush=True)
+    del masters, state
+
+
+def ssm_main_path(tag, arch):
+    """Phase 31's main train path of `arch`: `train(arch, smoke=False,
+    device="cuda")` with `SSM_TRAIN`'s batch, length and config cuts,
+    `SSM_TRAIN_STEPS` steps with the coflow plan, counters set to 0 just
+    before and read just after: the loss falls by the reference's bar,
+    each step launches `train_launches` and the plan K1, K2 and K6.
+    Returns (the run's launch counts, its record)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    batch, seq, cuts = SSM_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), **cuts)
+    want = train_launches(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train(arch, smoke=False, device="cuda", batch=batch, seq=seq,
+                steps=SSM_TRAIN_STEPS, coflow_plan=True, log_every=5,
+                config_cuts=cuts or None)
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != SSM_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"[{tag}] {arch}'s train path's losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first - 0.05:
+        fail(f"[{tag}] {arch}'s loss did not fall by the reference's bar: "
+             f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}")
+    plan = out["plan_launches"]
+    per_step = {n: (counts[n] - plan[n]) / SSM_TRAIN_STEPS for n in counts}
+    if per_step != want or any(plan[n] for n in want if want[n]) or \
+            not plan["contention"]:
+        fail(f"[{tag}] {arch}'s train path launched {counts} (the plan "
+             f"{plan}); expected a step to launch {want}")
+    ms = 1e3 * float(np.median(out["step_seconds"][1:]))
+    ms0 = 1e3 * out["step_seconds"][0]
+    tokens = batch * seq
+    print(f"[{tag}] train main path: {arch} at its published width, "
+          f"cuts {cuts or 'none'} ({cfg.num_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_dec else "")
+          + f", {cfg.param_count() / 1e9:.2f} B parameters), bf16 on f32 "
+          f"masters, {cfg.optimizer}, {cfg.train_microbatches} "
+          f"microbatch(es), {SSM_TRAIN_STEPS} steps of {batch} x {seq} "
+          f"tokens" + (" against 32 frames a row" if cfg.enc_dec else "")
+          + f": losses {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+          f"first 5 {first:.4f}, of the last 5 {last:.4f}); {ms:.1f} ms a "
+          f"step (median after the first; the first {ms0:.1f} ms), "
+          f"{tokens / ms * 1e3:.1f} tokens/s; peak {peak / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB of it held by earlier phases); wall "
+          f"{wall:.1f} s; launches a step "
+          f"{ {n: v for n, v in per_step.items() if v} }, the plan's "
+          f"{ {n: v for n, v in plan.items() if v} }; {len(out['plan'])} "
+          f"waves; stragglers {len(out['straggler_events'])}; {smi()}",
+          flush=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"arch": arch, "config_cuts": cuts,
+                    "layers": cfg.num_layers, "batch": batch, "seq": seq,
+                    "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+                    "peak_bytes": peak, "losses": losses,
+                    "reduced": ({"num_experts": [get_config(arch).num_experts,
+                                                 cfg.num_experts],
+                                 "num_layers": [get_config(arch).num_layers,
+                                                cfg.num_layers]}
+                                if cuts else {})}
+
+
+def pair_grads(cfg, masters, b, force):
+    """(loss, [the f64 norm of each master leaf's gradient]) of
+    `forward_train_loss` on batch `b`."""
+    import torch
+
+    from repro_torch.models import lm
+
+    loss = lm.forward_train_loss(lm.skeleton(cfg), masters, b, force=force)
+    grads = torch.autograd.grad(loss, list(masters.values()))
+    return float(loss.detach()), [float(torch.linalg.vector_norm(
+        g.double())) for g in grads]
+
+
+def layer_pairs(tag, cfg, masters, b):
+    """Each layer of `cfg`'s stack fed the same input, the plain path's
+    (its forward, layer by layer, under no_grad), and the same seeded
+    output gradient: the norms of its input's and its masters' gradients
+    with the kernels against the plain versions, rtol 2e-2 (the bf16
+    pair's bar). Returns the largest relative gap and its leaf."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import compute_dtype
+
+    dt = compute_dtype(cfg.dtype)
+    model = lm.skeleton(cfg)
+    S = b["tokens"].shape[1]
+    pos = torch.arange(S, device="cuda")[None]
+    with torch.no_grad():
+        x = lm._scale_embed(cfg, masters["embed"].to(dt)[b["tokens"]])
+    rng = np.random.default_rng(31)
+    worst = (0.0, "")
+    for l, layer in enumerate(model.layers):
+        pre = f"layers.{l}."
+        names = [n for n in masters if n.startswith(pre)]
+        g = torch.as_tensor(rng.normal(size=tuple(x.shape)), dtype=dt,
+                            device="cuda")
+        norms = {}
+        for force in (None, "ref"):
+            xi = x.detach().requires_grad_(True)
+            w = {n[len(pre):]: masters[n].to(dt) for n in names}
+            out = lm._layer(layer, w, xi, pos, force)
+            grads = torch.autograd.grad(out, [xi] + [masters[n]
+                                                     for n in names], g)
+            norms[force] = [float(torch.linalg.vector_norm(t.double()))
+                            for t in grads]
+            if force == "ref":
+                x = out.detach()
+        for n, a, r in zip(["input"] + names, norms[None], norms["ref"]):
+            gap = abs(a - r) / r if r else 0.0
+            if gap > worst[0]:
+                worst = (gap, f"{pre}{n}" if n == "input" else n)
+    if worst[0] > 2e-2:
+        fail(f"[{tag}] {cfg.name}'s layer-by-layer bf16 pair: the gradient "
+             f"norm of {worst[1]} differs by {worst[0]:.2e} relative (bar "
+             f"2e-2)")
+    return worst
+
+
+def ssm_bf16_pair(tag, arch):
+    """Phase 31's bf16 pair of `arch`: `SSM_PAIR_CUTS`' depth (Jamba: the
+    main path's period and experts), bf16 on f32 masters from
+    `lm.init_masters(seed=0)`, one microbatch of the main path's shape:
+    the loss and every gradient leaf's norm with the kernels against the
+    plain versions (loss within 2e-2, norms rtol 2e-2). Jamba's eight
+    bf16 layers compound the rounding of either path past 2e-2 on a few
+    small leaves (a Mamba layer's conv_w and conv_b) whichever kernel is
+    swapped in, K5 and K7 alone included; so, as the repository's bf16
+    serve test of Jamba does, its leaf norms are held layer by layer on
+    the same input (`layer_pairs`), and the whole stack besides in f32
+    (loss rtol 1e-5, every leaf's norm rtol 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(arch), **SSM_PAIR_CUTS[arch])
+    batch, seq, _ = SSM_TRAIN[arch]
+    rows = batch // max(cfg.train_microbatches, 1)
+    masters = lm.init_masters(cfg, seed=0, device="cuda")
+    data = SyntheticLMData(cfg.vocab_size, seq, rows,
+                           src_len=32 if cfg.enc_dec else 0,
+                           d_model=cfg.d_model, device="cuda")
+    b = ssm_batch(data, 0)
+    (lk, nk), (lr_, nr) = (pair_grads(cfg, masters, b, f)
+                           for f in (None, "ref"))
+    gap = max(abs(a - r) / r for a, r in zip(nk, nr) if r)
+    by_layer = arch == "jamba-v0.1-52b"
+    what = (f"whole-stack gradient leaf norms within {gap:.2e} relative "
+            f"(held layer by layer)" if by_layer else
+            f"gradient leaf norms within {gap:.2e} relative (bar 2e-2)")
+    if by_layer:
+        lgap, leaf = layer_pairs(tag, cfg, masters, b)
+        what += (f"; layer by layer on the same input: within {lgap:.2e} "
+                 f"relative at {leaf} (bar 2e-2)")
+    print(f"[{tag}] {arch} bf16 pair at full width, {SSM_PAIR_CUTS[arch]}, "
+          f"{rows} x {seq} tokens: loss {lk:.6f} with the kernels, "
+          f"{lr_:.6f} plain (gap {abs(lk - lr_):.2e}, bar 2e-2); {what}",
+          flush=True)
+    if abs(lk - lr_) > 2e-2 or (gap > 2e-2 and not by_layer):
+        fail(f"[{tag}] {arch}'s bf16 pair differs past its bar")
+    del masters
+    if by_layer:
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        masters = lm.init_masters(f32, seed=0, device="cuda")
+        (lk, nk), (lr_, nr) = (pair_grads(f32, masters, b, f)
+                               for f in (None, "ref"))
+        gap = max(abs(a - r) / r for a, r in zip(nk, nr) if r)
+        print(f"[{tag}] {arch} f32 pair, the same depth and batch: loss "
+              f"{lk:.7f} with the kernels, {lr_:.7f} plain (relative gap "
+              f"{abs(lk - lr_) / lr_:.2e}, bar 1e-5); gradient leaf norms "
+              f"within {gap:.2e} relative (bar 1e-4)", flush=True)
+        if abs(lk - lr_) > 1e-5 * lr_ or gap > 1e-4:
+            fail(f"[{tag}] {arch}'s f32 pair differs past its bar")
+        del masters
+
+
+def train_ssm_phase(tag):
+    """Phase 31: K8 against its plain version at `SSD_CASES` and at the
+    train shapes (`SSD_BWD_TRAIN`, `SSD_BWD_JAMBA`), f32 and bf16, with its
+    time beside the plain version's and the bound; K5 and K7 non-causal
+    at SeamlessM4T's cross attention in training (S > T, T under one key
+    tile); the train goldens of Mamba2-1.3B and SeamlessM4T-medium with
+    the kernels and with the plain versions; the three main train paths
+    (`SSM_TRAIN`), counters set to 0 just before and read just after;
+    the bf16 pairs. Returns (K8's record for the kernels line, the main
+    paths' launch counts summed, K5's shape records)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    t0 = [time.perf_counter()]
+
+    def part(what):
+        now = time.perf_counter()
+        print(f"[{tag}] {what}: {now - t0[0]:.1f} s", flush=True)
+        t0[0] = now
+
+    worst = {}
+    for shape in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, _, per = k8_check(tag, shape, dtype, dev)
+            key = str(dtype)[6:]
+            worst[key] = max([worst.get(key, 0.0)]
+                             + [e / max(m, 1e-30) for e, m in per.values()])
+    print(f"[{tag}] K8 within K4's bar at SSD_CASES {SSD_CASES}, two calls "
+          f"bitwise equal; largest error of the largest gradient: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    shapes = [k8_shape_record(tag, shape, dtype, dev, what)
+              for shape, what in ((SSD_BWD_TRAIN, "Mamba2-1.3B's train shape"),
+                                  (SSD_BWD_JAMBA, "Jamba's microbatch shape"))
+              for dtype in (torch.float32, torch.bfloat16)]
+    k5_shapes = []
+    for dtype in (torch.float32, torch.bfloat16):
+        k5_shapes.append(attention_shape_record(
+            tag, SEAMLESS_TRAIN_CROSS, dtype, dev,
+            "SeamlessM4T's cross attention in training", causal=False))
+        _, err, rel, _ = k7_check(tag, SEAMLESS_TRAIN_CROSS, dtype, dev,
+                                  causal=False)
+        print(f"[{tag}] K7 at SeamlessM4T's cross attention in training "
+              f"{SEAMLESS_TRAIN_CROSS} {str(dtype)[6:]} non-causal: max abs "
+              f"error {err:.3e} ({rel:.2e} of the largest gradient, bar "
+              f"{K7_BAR[str(dtype)[6:]]}); two calls bitwise equal",
+              flush=True)
+    part("K8, K5 and K7 records")
+
+    for arch, name in SSM_GOLDENS.items():
+        gold = json.loads((ROOT / "tests" / "data" / name).read_text())
+        cfg = dataclasses.replace(get_config(arch), **gold["config_cuts"])
+        params, _ = lm.numpy_params(cfg, seed=gold["seed"])
+        for force in (None, "ref"):
+            ssm_golden(tag, arch, params, gold, force)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    part("the train goldens")
+
+    counts, train = {}, {}
+    for arch in SSM_TRAIN:
+        counts[arch], train[arch] = ssm_main_path(tag, arch)
+    part("the main train paths")
+    if "--profile" in sys.argv[1:]:
+        profile_train(arch="mamba2-1.3b", batch=SSM_TRAIN["mamba2-1.3b"][0],
+                      seq=SSM_TRAIN["mamba2-1.3b"][1],
+                      split=("K8", K8_KERNELS))
+        gc.collect()
+    for arch in SSM_TRAIN:
+        ssm_bf16_pair(tag, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    part("the pairs")
+
+    main = next(r for r in shapes if r["dtype"] == "bfloat16")
+    rec = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/models/mamba.py:18",
+           "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": None,
+           "shapes": shapes, "train": train}
+    total = {n: sum(c[n] for c in counts.values())
+             for n in next(iter(counts.values()))}
+    return rec, total, k5_shapes
+
+
 def _guard(fn):
     """`fn()` inside `assert_no_transfers()`."""
     from repro_torch.analysis.sanitize import assert_no_transfers
@@ -4297,6 +4854,10 @@ def main():
     dense_shapes, dense_counts = dense_phase("30")
     lap("30")
 
+    # ---- 31. training through the Mamba mixer and the encoder ----------
+    k8, ssm_counts, ssm_k5 = train_ssm_phase("31")
+    lap("31")
+
     paths = {"bigswitch": counts, "leafspine": lcounts,
              "mamba2_serve": scounts, "starcoder2_serve": acounts,
              "session_bigswitch": pcounts, "session_leafspine": plcounts,
@@ -4307,7 +4868,7 @@ def main():
              "deepseek_v2": moe_counts["deepseek-v2-236b"],
              "jamba": moe_counts["jamba-v0.1-52b"], "train": tcounts,
              **{a.replace("-", "_").replace(".", "p"): dense_counts[a]
-                for a in DENSE_ARCHS}}
+                for a in DENSE_ARCHS}, "train_ssm": ssm_counts}
     total = {n: sum(p[n] for p in paths.values()) for n in counts}
     by_path = {n: {k: p[n] for k, p in paths.items()} for n in counts}
     kernels = [
@@ -4356,13 +4917,15 @@ def main():
          "bound_ms": k5[torch.bfloat16]["bound"],
          "bound_by": k5[torch.bfloat16]["by"],
          "library_ms": k5[torch.bfloat16]["sdpa"],
-         "shapes": moe_shapes["flash_attention"] + dense_shapes},
+         "shapes": moe_shapes["flash_attention"] + dense_shapes + ssm_k5},
         {**k6, "launches": total["prefix_sum"],
          "launches_by_path": by_path["prefix_sum"],
          "rows": total["prefix_sum_rows"],
          "rows_by_path": by_path["prefix_sum_rows"]},
         {**k7, "launches": total["flash_attention_bwd"],
          "launches_by_path": by_path["flash_attention_bwd"]},
+        {**k8, "launches": total["ssd_scan_bwd"],
+         "launches_by_path": by_path["ssd_scan_bwd"]},
     ]
     if "--profile" in sys.argv[1:]:
         for topo, label in ((None, "big switch"), (leaf, "leaf-spine")):

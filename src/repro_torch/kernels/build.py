@@ -39,6 +39,8 @@ SOURCES = {
     "maxmin": ("maxmin.cu", ["-fmad=false"]),
     # the SSD scan is held to a float tolerance, not bit for bit
     "ssd_scan": ("ssd_scan.cu", []),
+    # its backward (K8) likewise
+    "ssd_scan_bwd": ("ssd_scan_bwd.cu", []),
     # attention is held to a float tolerance too
     "flash_attention": ("flash_attention.cu", []),
     # its backward (K7) likewise

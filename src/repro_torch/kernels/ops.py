@@ -8,6 +8,14 @@ version), a CPU tensor takes the plain PyTorch version in `ref.py`.
 card. Each kernel module keeps a launch counter (`launch_counts`); K6
 also counts the rows it summed.
 
+The kernels launch through `ctypes`, so autograd records nothing of
+them: a CUDA call of `ssd_scan` or `flash_attention` with an input that
+requires a gradient, while grad mode is on, raises instead of returning
+an output with no gradient. Their gradients go through the autograd
+functions `models.mamba.SSDScan` (backward `ssd_scan_bwd`, K8) and
+`models.attention.FlashAttention` (backward `flash_attention_bwd`, K7),
+whose forwards run with grad mode off.
+
 Every entry point is a boundary an observer can see: while
 `analysis.op_scan` scans a callable, each call here is one
 `kernel:<name>` entry of its histogram (the CUDA kernels launch through
@@ -27,12 +35,13 @@ from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import maxmin as _maxmin
 from repro_torch.kernels import prefix_sum as _prefix
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssd_bwd
 from repro_torch.kernels import walk as _walk
 from repro_torch.kernels.ref import (WalkFlows, contention_ref,
                                      flash_attention_bwd_ref,
                                      flash_attention_ref, maxmin_ref,
-                                     prefix_sum_ref, ssd_chunked_ref,
-                                     tick_walk_ref)
+                                     prefix_sum_ref, ssd_chunked_bwd_ref,
+                                     ssd_chunked_ref, tick_walk_ref)
 
 
 # objects with kernel_enter(name) / kernel_exit(name), called around
@@ -63,6 +72,18 @@ def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
     if force == "ref":
         return False
     raise ValueError(f"unknown force {force!r}; available: None, 'ref'")
+
+
+def _no_tape(name: str, via: str, *ts) -> None:
+    """Raise where autograd would record a CUDA kernel call: the kernels
+    launch through `ctypes`, so their outputs carry no `grad_fn` and
+    every gradient through them would be silently lost. Inside an
+    autograd function's forward grad mode is off and the call passes;
+    `via` names the function that carries the gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(f"ops.{name} on CUDA records no gradient; an "
+                           f"input requires one: call it through {via}")
 
 
 @_boundary("contention")
@@ -111,7 +132,24 @@ def ssd_scan(x, dt, a, b, c, *, init_state=None, lc: int = 128,
     if not _use_kernel(x, force):
         return ssd_chunked_ref(x, dt, a, b, c, init_state=init_state,
                                lc=lc)
+    _no_tape("ssd_scan", "models.mamba.scan", x, dt, a, b, c, init_state)
     return _ssd.ssd_scan_cuda(x, dt, a, b, c, init_state=init_state, lc=lc)
+
+
+@_boundary("ssd_scan_bwd")
+def ssd_scan_bwd(x, dt, a, b, c, dy, *, init_state=None, lc: int = 128,
+                 force: Optional[str] = None):
+    """The gradient of `ssd_scan`'s y at (x, dt, a, b, c) for the output
+    gradient dy, with no initial state (a train step has none; one
+    raises): (dx, ddt, da, db, dc), da in f32, the others in the inputs'
+    dtype (see `ref.ssd_chunked_bwd_ref`); on CUDA the kernel K8, which
+    takes x, b, c and dy through their strides."""
+    if init_state is not None:
+        raise ValueError("ssd_scan_bwd takes no initial state: a train "
+                         "step's scan starts from zeros")
+    if _use_kernel(x, force):
+        return _ssd_bwd.ssd_scan_bwd_cuda(x, dt, a, b, c, dy, lc=lc)
+    return ssd_chunked_bwd_ref(x, dt, a, b, c, dy, lc=lc)
 
 
 @_boundary("flash_attention")
@@ -126,6 +164,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, not {q_offset}")
     if _use_kernel(q, force):
+        _no_tape("flash_attention", "models.attention.attend", q, k, v)
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            q_offset=q_offset)
     return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -167,6 +206,7 @@ def launch_counts() -> dict:
             "tick_walk": _walk.launches,
             "maxmin": _maxmin.launches,
             "ssd_scan": _ssd.launches,
+            "ssd_scan_bwd": _ssd_bwd.launches,
             "flash_attention": _flash.launches,
             "flash_attention_bwd": _flash_bwd.launches,
             "prefix_sum": _prefix.launches,
@@ -178,6 +218,7 @@ def reset_launches() -> None:
     _walk.launches = 0
     _maxmin.launches = 0
     _ssd.launches = 0
+    _ssd_bwd.launches = 0
     _flash.launches = 0
     _flash_bwd.launches = 0
     _prefix.launches = 0
@@ -185,5 +226,5 @@ def reset_launches() -> None:
 
 
 __all__ = ["contention", "tick_walk", "maxmin_rates", "ssd_scan",
-           "flash_attention", "flash_attention_bwd", "prefix_sum",
-           "WalkFlows", "launch_counts", "reset_launches"]
+           "ssd_scan_bwd", "flash_attention", "flash_attention_bwd",
+           "prefix_sum", "WalkFlows", "launch_counts", "reset_launches"]

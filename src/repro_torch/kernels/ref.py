@@ -23,6 +23,9 @@ equal bit for bit; they are no yardstick of speed.
   SSD kernel (K4) computes, padding included. Unlike the other plain
   versions these two do not repeat the kernel op for op: the kernel sums
   in its own order, so they agree to a float tolerance, not bit for bit.
+  `ssd_chunked_bwd_ref` is the gradient of `ssd_chunked_ref` written out
+  (what `jax.value_and_grad` derives from `ssd_chunked_jnp`), which the
+  SSD scan's backward (K8) computes, likewise to a tolerance.
 * `attention_ref` is `repro.kernels.ref.attention_ref` (GQA attention
   with a materialized softmax, causal mask aligned bottom-right), and
   `flash_attention_ref` is the online-softmax form of
@@ -346,6 +349,106 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), s
 
 
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                        *, lc: int = 128):
+    """The gradient of `ssd_chunked_ref`'s y, with no initial state,
+    written out: (dx, ddt, da, db, dc) at (x, dt, a, b, c) for the
+    output gradient dy (B, L, H, Dh), in the inputs' dtypes (da in f32),
+    computed in f32 (f64 for f64 inputs). L is padded as the forward
+    pads it. The chunk-start states S are recomputed first; then the
+    chunks are swept in reverse, carrying dS (the gradient of the state
+    at the chunk's end, 0 after the last). With the forward's names per
+    chunk (cum, the decay L_tu = exp(cum_t - cum_u) [u <= t], G = c b^T,
+    M = G * L * dt_u, w = exp(cl - cum) dt, e = exp(cum), cl = cum's
+    last):
+
+        dM  = dY X^T (lower triangle),      dG = dM * L * dt_u
+        dX  = M^T dY + diag(w) B dS^T
+        dC  = dG B + diag(e) dY S,          dB = dG^T C + diag(w) X dS
+        dS' = exp(cl) dS + (diag(e) dY)^T C          (the chunk before)
+
+    dt and a enter through cum, M and w. With dw_u = x_u^T dS b_u and
+    P = dM * M: ddt's direct terms are sum_t dM_tu G_tu L_tu + dw_u
+    exp(cl - cum_u); dcum = P's row sums - its column sums + e_t (dY_t .
+    S c_t) - dw w, and cl (cum's last) takes sum_u dw_u w_u + exp(cl)
+    <dS, S>; the reverse cumsum of dcum is d(dt a), so ddt += a d(dt a)
+    and da = sum over (batch, t) of dt d(dt a). db and dc sum the H / G
+    heads of each group."""
+    B, L, H, Dh = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    ct = _compute_dtype(x)
+    pad = (-L) % lc
+    Lp = L + pad
+    nn_pad = torch.nn.functional.pad
+    xf = nn_pad(x.to(ct), (0, 0, 0, 0, 0, pad))
+    dyf = nn_pad(dy.to(ct), (0, 0, 0, 0, 0, pad))
+    dtf = nn_pad(dt.to(ct), (0, 0, 0, pad))
+    bh = nn_pad(b.repeat_interleave(rep, dim=2).to(ct), (0, 0, 0, 0, 0, pad))
+    ch = nn_pad(c.repeat_interleave(rep, dim=2).to(ct), (0, 0, 0, 0, 0, pad))
+    af = a.to(ct)
+    tri = torch.tril(torch.ones(lc, lc, dtype=torch.bool,
+                                device=x.device))[None, :, :, None]
+
+    def local(j):
+        sl = slice(j, j + lc)
+        dtc = dtf[:, sl]
+        cum = torch.cumsum(dtc * af, dim=1)                  # (B, lc, H)
+        cl = cum[:, -1]                                      # (B, H)
+        return xf[:, sl], dtc, bh[:, sl], ch[:, sl], dyf[:, sl], cum, cl
+
+    states, s = [], xf.new_zeros(B, H, Dh, N)
+    for j in range(0, Lp, lc):
+        xc, dtc, bc, _, _, cum, cl = local(j)
+        states.append(s)
+        w = torch.exp(cl[:, None] - cum) * dtc
+        s = torch.exp(cl)[..., None, None] * s + torch.einsum(
+            "buhd,buhn->bhdn", xc * w[..., None], bc)
+
+    dx, ddt, dbh, dch = (torch.zeros_like(t) for t in (xf, dtf, bh, ch))
+    da = af.new_zeros(H)
+    ds = xf.new_zeros(B, H, Dh, N)
+    for k in reversed(range(len(states))):
+        j, sp = k * lc, states[k]
+        xc, dtc, bc, cc, dyc, cum, cl = local(j)
+        e = torch.exp(cum)
+        w = torch.exp(cl[:, None] - cum) * dtc
+        diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B, t, u, H)
+        dec = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        g = torch.einsum("bthn,buhn->btuh", cc, bc)
+        m = g * dec * dtc[:, None]
+        dm = torch.where(tri, torch.einsum("bthd,buhd->btuh", dyc, xc), 0.0)
+        dg = dm * dec * dtc[:, None]
+        bds = torch.einsum("buhn,bhdn->buhd", bc, ds)        # B dS^T
+        dys = torch.einsum("bthd,bhdn->bthn", dyc, sp)       # dY S
+        dx[:, j:j + lc] = (torch.einsum("btuh,bthd->buhd", m, dyc)
+                           + w[..., None] * bds)
+        dch[:, j:j + lc] = (torch.einsum("btuh,buhn->bthn", dg, bc)
+                            + e[..., None] * dys)
+        dbh[:, j:j + lc] = (torch.einsum("btuh,bthn->buhn", dg, cc)
+                            + w[..., None] * torch.einsum(
+                                "buhd,bhdn->buhn", xc, ds))
+        dw = (xc * bds).sum(-1)                              # (B, lc, H)
+        p = dm * m
+        dcum = p.sum(2) - p.sum(1) + e * (dys * cc).sum(-1) - dw * w
+        dcum[:, -1] += (dw * w).sum(1) + torch.exp(cl) * (ds * sp).sum(
+            (-2, -1))
+        ddta = dcum.flip(1).cumsum(1).flip(1)                # d(dt a)
+        ddt[:, j:j + lc] = ((dm * g * dec).sum(1)
+                            + dw * torch.exp(cl[:, None] - cum)
+                            + af * ddta)
+        da += (dtc * ddta).sum((0, 1))
+        ds = torch.exp(cl)[..., None, None] * ds + torch.einsum(
+            "bthd,bthn->bhdn", e[..., None] * dyc, cc)
+
+    def heads(t):   # (B, Lp, H, N) per head -> (B, L, G, N) per group
+        return t[:, :L].reshape(B, L, G, rep, N).sum(3)
+
+    return (dx[:, :L].to(x.dtype), ddt[:, :L].to(dt.dtype), da,
+            heads(dbh).to(b.dtype), heads(dch).to(c.dtype))
+
+
 NEG_INF = -1e30   # the masked score of the attention kernels
 
 
@@ -498,5 +601,6 @@ def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["BIG", "NEG_INF", "PREFIX_BLOCK", "WalkFlows", "attention_ref",
            "contention_ref", "flash_attention_bwd_ref", "flash_attention_ref",
-           "maxmin_ref", "maxmin_rounds", "prefix_sum_ref", "ssd_chunked_ref",
+           "maxmin_ref", "maxmin_rounds", "prefix_sum_ref",
+           "ssd_chunked_bwd_ref", "ssd_chunked_ref",
            "ssd_ref", "tick_walk_ref"]

@@ -5,9 +5,8 @@ The counterpart of `repro.launch.steps` (`materialize_model`,
 `make_prefill_step`, `make_decode_step`, `make_train_step`). There is no
 sharding and no `jit`: PyTorch runs the steps eagerly on one device, for
 every stack `models.lm` builds (Mamba, GQA and MLA mixers; dense, MoE or
-no FFN; an encoder-decoder's encoder and cross attention); the train
-step for every decoder-only stack without a Mamba mixer (ROADMAP queue
-A item 11e-ii brings the others).
+no FFN; an encoder-decoder's encoder and cross attention), the train
+step included.
 """
 from __future__ import annotations
 
@@ -55,8 +54,7 @@ def make_train_step(cfg, optimizer, *, force: Optional[str] = None):
     splits into k row blocks; the gradients accumulate as the
     reference's scan does (zeros, plus each microbatch's in turn) and
     the loss and gradients are divided by k. `force="ref"` pins the
-    plain attention forward and backward."""
-    lm.check_trainable(cfg)
+    plain attention and SSD scan, forward and backward."""
     k = max(cfg.train_microbatches, 1)
     model = lm.skeleton(cfg)
 

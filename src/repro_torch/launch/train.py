@@ -14,13 +14,13 @@ The counterpart of `repro.launch.train`, with its fault tolerance:
     queue A item 8).
 
 The masters are f32 (`lm.init_masters`, drawn on the device), the
-compute dtype the config's; the attention runs K5 forward and K7
-backward on the card. With `coflow_plan` the step's gradient buckets
-(8 MiB, `runtime.buckets.bucketize`) are planned once into Saath waves
-for 8 chips on the same device (`runtime.coflow_bridge.plan_waves`).
-Archs with a Mamba mixer raise `NotImplementedError` (ROADMAP queue A
-item 11e-ii), the reference's archs the port does not serve yet as
-`configs.get_config` does.
+compute dtype the config's; on the card the attention runs K5 forward
+and K7 backward, the Mamba mixer's SSD scan K4 forward and K8 backward.
+An encoder-decoder arch (SeamlessM4T) draws 32 source frames a row
+(`src_embeds`), as `repro.launch.train` does. With `coflow_plan` the
+step's gradient buckets (8 MiB, `runtime.buckets.bucketize`) are
+planned once into Saath waves for 8 chips on the same device
+(`runtime.coflow_bridge.plan_waves`).
 
 Usage (CPU smoke scale; the card is the default device):
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
@@ -31,6 +31,7 @@ Usage (CPU smoke scale; the card is the default device):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import signal
 import time
@@ -70,15 +71,17 @@ class StragglerWatchdog:
 def train(arch: str, *, steps: int = 50, smoke: bool = True,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
           batch: int = 8, seq: int = 64, seed: int = 0, log_every: int = 10,
-          coflow_plan: bool = True, device=None):
+          coflow_plan: bool = True, device=None,
+          config_cuts: Optional[dict] = None):
     """Train `arch` (its smoke config, or the published one with
-    `smoke=False`) for `steps` steps of `batch` x `seq` tokens on
-    `device` (default CUDA). Returns {"losses", "grad_norms",
-    "step_seconds", "straggler_events", "plan", "plan_launches",
-    "final_step"}; `plan_launches` are the kernel launches of the
-    coflow plan."""
+    `smoke=False`; `config_cuts` replaces fields of it, e.g. the depth)
+    for `steps` steps of `batch` x `seq` tokens on `device` (default
+    CUDA). Returns {"losses", "grad_norms", "step_seconds",
+    "straggler_events", "plan", "plan_launches", "final_step"};
+    `plan_launches` are the kernel launches of the coflow plan."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    lm.check_trainable(cfg)
+    if config_cuts:
+        cfg = dataclasses.replace(cfg, **config_cuts)
     dev = resolve_device(device)
     params = lm.init_masters(cfg, seed=seed, device=dev)
     opt = make_optimizer(cfg, total_steps=steps,

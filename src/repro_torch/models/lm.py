@@ -175,10 +175,11 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, cache=None, *, positions=None,
                 kv_len: Optional[int] = None, force: Optional[str] = None,
-                causal: bool = True):
+                causal: bool = True, cross_kv=None):
         """`causal` False makes an attention mixer's prefill non-causal
         (an encoder's); a cross-attending layer reads the "cross_k" and
-        "cross_v" of its `cache`."""
+        "cross_v" of its `cache`, or `cross_kv` = (k, v) when given (the
+        train loss, which runs without caches)."""
         h = rms_norm(x, self.ln1)
         if self.mixer == "attn":
             o, cache = self.attn(h, positions, cache, kv_len=kv_len,
@@ -190,8 +191,9 @@ class DecoderLayer(nn.Module):
             o, cache = self.mamba(h, cache, force=force)
         x = x + o
         if self.has_cross:
-            x = x + self.cross.cross(rms_norm(x, self.ln_cross),
-                                     cache["cross_k"], cache["cross_v"],
+            k, v = cross_kv if cross_kv is not None else (
+                cache["cross_k"], cache["cross_v"])
+            x = x + self.cross.cross(rms_norm(x, self.ln_cross), k, v,
                                      decode=kv_len is not None, force=force)
         if self.ffn_kind == "dense":
             x = x + self.ffn(rms_norm(x, self.ln2))
@@ -391,10 +393,6 @@ def from_reference(params, meta, cfg, *, device="cpu") -> DecoderLM:
 
 
 # ---------------------------------------------------------------- training
-_TRAIN = ("11e-ii (K4's backward, Mamba2-1.3B and Jamba training; "
-          "SeamlessM4T training)")
-
-
 class _MetaInit:
     """`ParamInit`'s interface on the meta device: shapes, no storage."""
 
@@ -422,22 +420,6 @@ def param_names(cfg) -> list:
     "layers.<l>.<sub>.<leaf>", then "encoder.<l>.<sub>.<leaf>" and
     "ln_enc" for an encoder-decoder config)."""
     return [n for n, _ in skeleton(cfg).named_parameters()]
-
-
-def check_trainable(cfg) -> None:
-    """Raise `NotImplementedError` for a plan with a Mamba mixer (K4 has
-    no backward yet) or an encoder-decoder config (`forward_train_loss`
-    runs no encoder yet): ROADMAP queue A item 11e-ii."""
-    if any(mixer == "mamba" for mixer, _, _ in
-           layer_plan(cfg, cfg.num_layers, False)):
-        raise NotImplementedError(
-            f"{cfg.name}: training a Mamba mixer needs the SSD scan's "
-            f"backward, not ported yet (ROADMAP queue A item {_TRAIN})")
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder stack needs the "
-            f"encoder and the cross attention in forward_train_loss, not "
-            f"ported yet (ROADMAP queue A item {_TRAIN})")
 
 
 def init_masters(cfg, *, seed: int = 0, device="cpu") -> OrderedDict:
@@ -502,10 +484,17 @@ def masters_from_reference(params, cfg, *, device="cpu") -> OrderedDict:
         for n, a in reference_leaves(params, cfg).items())
 
 
-def _layer(layer, w, x, positions, force):
+def _layer(layer, w, x, positions, force, causal=True, cross_kv=None):
     return torch.func.functional_call(
-        layer, w, (x,), {"positions": positions, "force": force},
+        layer, w, (x,), {"positions": positions, "force": force,
+                         "causal": causal, "cross_kv": cross_kv},
         strict=True)[0]
+
+
+def _stack_weights(w, prefix: str) -> dict:
+    """{leaf name inside the layer: tensor} of the masters under
+    `prefix` ("layers.<l>." or "encoder.<l>.")."""
+    return {n[len(prefix):]: t for n, t in w.items() if n.startswith(prefix)}
 
 
 def _head_chunk(x, head, labels):
@@ -537,13 +526,18 @@ def forward_train_loss(model: DecoderLM, params, batch, *,
     the z-loss 1e-4 mean(logz^2). `params` are the f32 masters (any
     dict by `param_names`), cast to the compute dtype here; `model` any
     model of the config (its own parameters are not read: `skeleton`).
-    Under `cfg.remat` other than "none" each layer and each head chunk
-    runs under `torch.utils.checkpoint` (non-reentrant), recomputed in
-    the backward. The attention runs through `attention.attend` (K5
-    forward, K7 backward on the card; `force` pins the plain
-    versions)."""
+    An encoder-decoder config first encodes `batch["src_embeds"]` (B,
+    S_src, d_model) through its encoder layers, non-causal, then
+    `ln_enc`, and projects the result once per decoder layer through that
+    layer's cross.wk and cross.wv into its cross k and v (the reference's
+    `_make_cross_caches`). Under `cfg.remat` other than "none" each
+    layer (the encoder's too) and each head chunk runs under
+    `torch.utils.checkpoint` (non-reentrant), recomputed in the
+    backward. The attention runs through `attention.attend` (K5
+    forward, K7 backward on the card), the Mamba scan through
+    `mamba.scan` (K4 forward, K8 backward); `force` pins the plain
+    versions."""
     cfg = model.cfg
-    check_trainable(cfg)
     dt = compute_dtype(cfg.dtype)
     w = {n: p.to(dt) if p.is_floating_point() else p
          for n, p in params.items()}
@@ -556,11 +550,22 @@ def forward_train_loss(model: DecoderLM, params, batch, *,
         return checkpoint(fn, *args, use_reentrant=False) if remat \
             else fn(*args)
 
+    cross = [None] * len(model.layers)
+    if cfg.enc_dec:
+        e = batch["src_embeds"].to(dt)
+        epos = torch.arange(e.shape[1], device=e.device)[None]
+        for l, layer in enumerate(model.encoder):
+            e = run(_layer, layer, _stack_weights(w, f"encoder.{l}."), e,
+                    epos, force, False)
+        e = rms_norm(e, w["ln_enc"])
+        kv_shape = (B, e.shape[1], cfg.num_kv_heads, cfg.head_dim)
+        cross = [tuple((e @ w[f"layers.{l}.cross.{n}"].flatten(1))
+                       .view(kv_shape) for n in ("wk", "wv"))
+                 for l in range(len(model.layers))]
     x = _scale_embed(cfg, w["embed"][tokens])
     for l, layer in enumerate(model.layers):
-        pre = f"layers.{l}."
-        lw = {n[len(pre):]: t for n, t in w.items() if n.startswith(pre)}
-        x = run(_layer, layer, lw, x, positions, force)
+        x = run(_layer, layer, _stack_weights(w, f"layers.{l}."), x,
+                positions, force, True, cross[l])
     x = rms_norm(x, w["ln_f"])
     head = w["embed"].T if cfg.tie_embeddings else w["head"]
     chunk = _train_chunk(cfg, B, S, chunk)
@@ -704,7 +709,7 @@ def forward_decode(model: DecoderLM, tokens: torch.Tensor, cache,
     return lm_logits(model, x), new
 
 
-__all__ = ["DecoderLM", "check_trainable", "embed_tokens", "encode",
+__all__ = ["DecoderLM", "embed_tokens", "encode",
            "forward_decode", "forward_prefill", "forward_train_loss",
            "from_reference", "init_cache", "init_masters", "init_model",
            "layer_plan", "lm_logits", "lm_loss", "masters_from_reference",

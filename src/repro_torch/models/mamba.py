@@ -7,6 +7,15 @@ recurrence `ssd_decode_step` against the carried (H, Dh, N) state plus a
 (k-1)-deep causal-conv window, as plain tensor code (the reference has
 no kernel for it either).
 
+For training (`lm.forward_train_loss`) the prefill scan runs under
+autograd: `scan` wraps it in `SSDScan`, an autograd function whose
+forward is the same `ops.ssd_scan` call (K4 on the card) and whose
+backward is `ops.ssd_scan_bwd` (K8 on the card, the plain
+`ref.ssd_chunked_bwd_ref` on the CPU; `force="ref"` pins the plain
+versions of both). A train call has no cache: no initial state and no
+final state is differentiated. With no input requiring a gradient
+(serving, under `inference_mode`) `scan` is the plain call.
+
 Cache layout per layer: {"conv": (B, k-1, C_conv) in the compute dtype,
 "ssd": (B, H, Dh, N) f32}.
 """
@@ -25,6 +34,44 @@ from repro_torch.models.common import ParamInit, rms_norm
 PARAM_NAMES = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
                "norm", "out_proj")
 CHUNK = 128   # the SSD scan's chunk length (the reference's lc)
+
+
+class SSDScan(torch.autograd.Function):
+    """`ops.ssd_scan`'s y with its gradient: forward the kernel (K4 on
+    CUDA) from a zero state, backward `ops.ssd_scan_bwd` (K8 on CUDA)
+    from the saved x, dt, a, b and c; `force` pins both paths, as in
+    `ops`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, lc: int, force: Optional[str]):
+        y, _ = ops.ssd_scan(x, dt, a, b, c, lc=lc, force=force)
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.lc, ctx.force = lc, force
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a, b, c = ctx.saved_tensors
+        dx, ddt, da, db, dc = ops.ssd_scan_bwd(x, dt, a, b, c, dy,
+                                               lc=ctx.lc, force=ctx.force)
+        return dx, ddt, da.to(a.dtype), db, dc, None, None
+
+
+def scan(x, dt, a, b, c, *, init_state=None, lc: int = CHUNK,
+         force: Optional[str] = None):
+    """The prefill scan (the layout of `ops.ssd_scan`): through `SSDScan`
+    when autograd records and an input requires a gradient, returning
+    (y, None), else the plain call, returning (y, final state). A
+    recorded call takes no initial state (it raises: its gradient would
+    be lost)."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c)):
+        if init_state is not None:
+            raise ValueError("a differentiated SSD scan starts from a zero "
+                             "state: no init_state")
+        return SSDScan.apply(x, dt, a, b, c, lc, force), None
+    return ops.ssd_scan(x, dt, a, b, c, init_state=init_state, lc=lc,
+                        force=force)
 
 
 def ssd_decode_step(x, dt, a, b, c, state):
@@ -114,7 +161,7 @@ class Mamba2Mixer(nn.Module):
         bs = conv[..., di:di + G * N].reshape(B, S, G, N)
         cs = conv[..., di + G * N:].reshape(B, S, G, N)
         dt = F.softplus(dt_raw + self.dt_bias)                   # (B, S, H)
-        y, s_fin = ops.ssd_scan(xs, dt, a, bs, cs, lc=CHUNK, force=force)
+        y, s_fin = scan(xs, dt, a, bs, cs, force=force)
         y = y + self.d_skip[None, None, :, None] * xs
         y = rms_norm(y.reshape(B, S, di), self.norm) * F.silu(z)
         out = y @ self.out_proj
@@ -125,4 +172,5 @@ class Mamba2Mixer(nn.Module):
         return out, {"conv": xp[:, S:].clone(), "ssd": s_fin}
 
 
-__all__ = ["Mamba2Mixer", "PARAM_NAMES", "mamba_init", "ssd_decode_step"]
+__all__ = ["Mamba2Mixer", "PARAM_NAMES", "SSDScan", "mamba_init", "scan",
+           "ssd_decode_step"]

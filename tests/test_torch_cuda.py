@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 contention, K2 tick walk, K3 max-min fill,
-K4 SSD scan, K5 attention, K6 prefix sums, K7 the attention backward)
+K4 SSD scan, K5 attention, K6 prefix sums, K7 the attention backward, K8
+the SSD scan's backward)
 against their plain PyTorch versions, on the
 card (learned-size ticks among them), the replays, pools and a small
 `CoflowServer` on the card against the CPU, a 2-layer full-width Mamba2
@@ -7,8 +8,12 @@ serve with K4 against the plain path, a 2-layer full-width
 StarCoder2 serve through K5 against the JAX package's golden, K5 at
 MLA's widths (192, 128), K4 at Jamba's state width 16, the SMOKE MoE,
 MLA and hybrid sessions against their plain paths, and the
-runtime bridge (its wave plan, an NCCL world of 1), and a SMOKE
-StarCoder2 train step through K5 and K7 against the plain path. Every
+runtime bridge (its wave plan, an NCCL world of 1), a SMOKE
+StarCoder2 train step through K5 and K7 against the plain path, K8
+against its plain version (bitwise repeatable, strided views), K5 and
+K7 non-causal with more queries than keys, the refusal of a kernel call
+autograd would record, and a SMOKE Mamba2 train step through K4 and K8
+against the CPU's. Every
 test marked `gpu` needs a CUDA device and skips without one; run them
 on the card with
 
@@ -1759,3 +1764,193 @@ def test_train_step_through_k5_and_k7_matches_the_plain_path(cuda):
                    if n not in ("flash_attention", "flash_attention_bwd"))
     assert not any(cr.values())
     assert abs(lk - lr_) < 2e-2 and abs(gk - gr) < 2e-2 * gr
+
+
+# ---- training through the Mamba mixer: K8 (the SSD scan's backward) -------
+
+# SSD_SHAPES, then Mamba2-1.3B's train shape (4 x 2048 tokens) and Jamba's
+# microbatch shape (1 x 1024 tokens, H 128, N 16)
+SSD_BWD_SHAPES = SSD_SHAPES[:5] + [(4, 2048, 64, 1, 64, 128, 128),
+                                   (1, 1024, 128, 1, 64, 16, 128)]
+
+
+def ssd_bwd_inputs(B, L, H, G, Dh, N, *, seed, dtype, device):
+    """`ssd_inputs` and a seeded output gradient dy (B, L, H, Dh)."""
+    args = ssd_inputs(B, L, H, G, Dh, N, seed=seed, dtype=dtype,
+                      device=device)
+    dy = np.random.default_rng(seed + 1).normal(size=(B, L, H, Dh))
+    return args, torch.as_tensor(dy, dtype=dtype, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,Dh,N,lc", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(cuda, B, L, H, G, Dh, N, lc, dtype):
+    """K8 against `ssd_chunked_bwd_ref` on the card: each gradient (da
+    included) within K4's bar, atol 5e-4 of its largest magnitude and
+    rtol 1e-3 (plus one bf16 step for a bf16 gradient); one call counted
+    per backward."""
+    args, dy = ssd_bwd_inputs(B, L, H, G, Dh, N, seed=L + H, dtype=dtype,
+                              device=cuda)
+    before = ops.launch_counts()["ssd_scan_bwd"]
+    got = ops.ssd_scan_bwd(*args, dy, lc=lc)
+    assert ops.launch_counts()["ssd_scan_bwd"] == before + 1
+    want = ops.ssd_scan_bwd(*args, dy, lc=lc, force="ref")
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, args):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g).all())
+        assert_ssd_close(g, w, atol=5e-4 * float(w.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_is_bitwise_repeatable(cuda, dtype):
+    """No atomics: two calls give the same bits (G = 2, a ragged chunk)."""
+    args, dy = ssd_bwd_inputs(2, 300, 8, 2, 64, 128, seed=3, dtype=dtype,
+                              device=cuda)
+    first = ops.ssd_scan_bwd(*args, dy)
+    second = ops.ssd_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_reads_strided_views(cuda):
+    """x, b, c and dy as views of wider rows (the mixer's conv output,
+    autograd's gradient of a slice) give the contiguous inputs' bits."""
+    args, dy = ssd_bwd_inputs(2, 200, 4, 2, 32, 16, seed=8,
+                              dtype=torch.bfloat16, device=cuda)
+    x, dt, a, b, c = args
+
+    def wide(t):
+        w = torch.zeros(t.shape[:2] + (t.shape[2] * t.shape[3] + 24,),
+                        dtype=t.dtype, device=cuda)
+        w[..., 8:8 + t.shape[2] * t.shape[3]] = t.flatten(2)
+        return w[..., 8:8 + t.shape[2] * t.shape[3]].view(t.shape)
+
+    views = [wide(t) for t in (x, b, c, dy)]
+    assert not views[0].is_contiguous()
+    got = ops.ssd_scan_bwd(views[0], dt, a, views[1], views[2], views[3],
+                           lc=64)
+    want = ops.ssd_scan_bwd(x, dt, a, b, c, dy, lc=64)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_cuda
+
+    args, dy = ssd_bwd_inputs(1, 32, 2, 1, 8, 129, seed=1,
+                              dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="N = 129"):
+        ssd_scan_bwd_cuda(*args, dy)
+    args, dy = ssd_bwd_inputs(1, 32, 3, 2, 8, 16, seed=1,
+                              dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_scan_bwd_cuda(*args, dy)
+    with pytest.raises(ValueError, match="lc = 256"):
+        ssd_scan_bwd_cuda(*args[:3], args[3][:, :, :1], args[4][:, :, :1],
+                          dy, lc=256)
+    with pytest.raises(ValueError, match="no initial state"):
+        ops.ssd_scan_bwd(*args, dy, init_state=torch.zeros(1, 3, 8, 16,
+                                                           device=cuda))
+
+
+@pytest.mark.gpu
+def test_kernel_calls_autograd_would_record_raise(cuda):
+    """A CUDA kernel call with an input requiring a gradient under grad
+    mode raises (its output would carry no gradient); `models.mamba.scan`
+    and `models.attention.attend` carry it through K8 and K7."""
+    from repro_torch.models import attention, mamba
+
+    args, dy = ssd_bwd_inputs(1, 64, 2, 1, 16, 16, seed=2,
+                              dtype=torch.float32, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        ops.ssd_scan(*leaves, lc=32)
+    q = torch.randn(1, 2, 32, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        ops.flash_attention(q, q, q)
+    y, _ = mamba.scan(*leaves, lc=32)
+    got = torch.autograd.grad(y, leaves, dy)
+    want = ops.ssd_scan_bwd(*args, dy, lc=32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert attention.attend(q, q, q).grad_fn is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 16, 16, 2048, 32, 64),
+                                   (2, 4, 2, 301, 21, 64)], ids=str)
+def test_attention_non_causal_with_more_queries_than_keys(cuda, shape,
+                                                          dtype):
+    """SeamlessM4T's cross attention in training: S decoder rows against
+    T frames, T under one key tile; K5 (atol 2e-6 f32, 2e-2 bf16) and K7
+    (each gradient within 1e-5 / 2e-2 of its largest) against their plain
+    versions, non-causal, on transposed (B, S, H, D) views."""
+    B, H, Hkv, S, T, D = shape
+    rng = np.random.default_rng(S + T)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device=cuda).to(dtype).transpose(1, 2)
+                   for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D),
+                             (B, S, H, D)))
+    o = ops.flash_attention(q, k, v, causal=False)
+    o_ref = ops.flash_attention(q, k, v, causal=False, force="ref")
+    torch.cuda.synchronize()
+    bar = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=bar, rtol=0)
+    got = ops.flash_attention_bwd(q, k, v, o_ref, do, causal=False)
+    want = ops.flash_attention_bwd(q, k, v, o_ref, do, causal=False,
+                                   force="ref")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        bar = K7_BAR[dtype] * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=bar, rtol=0)
+
+
+@pytest.mark.gpu
+def test_mamba2_smoke_train_step_matches_the_cpu(cuda):
+    """One f32 train step of the SMOKE Mamba2 on the card (K4 twice a
+    layer under remat, K8 once, nothing else) against the same step on
+    the CPU (the plain versions): loss rtol 1e-5, grad norm and every
+    master leaf's norm after the update rtol 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"),
+                              dtype="float32")
+    t = SyntheticLMData(cfg.vocab_size, 300, 2).batch(0)["tokens"]
+    drawn = lm.init_masters(cfg, seed=0)   # one draw, on the CPU
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        masters = type(drawn)((n, p.detach().to(dev).requires_grad_(True))
+                              for n, p in drawn.items())
+        opt = make_optimizer(cfg, total_steps=2)
+        state = opt.init(masters)
+        ops.reset_launches()
+        masters, _, m = ST.make_train_step(cfg, opt)(
+            masters, state, 0, {"tokens": t[:, :-1].to(dev),
+                                "labels": t[:, 1:].to(dev)})
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         {n: float(torch.linalg.vector_norm(
+                             p.detach().double())) for n, p in
+                          masters.items()}, ops.launch_counts())
+    (lk, gk, nk, ck), (lc_, gc, nc, cc) = out["cuda"], out["cpu"]
+    L = cfg.num_layers
+    assert ck["ssd_scan"] == 2 * L and ck["ssd_scan_bwd"] == L
+    assert not any(v for n, v in ck.items()
+                   if n not in ("ssd_scan", "ssd_scan_bwd"))
+    assert not any(cc.values())
+    assert abs(lk - lc_) <= 1e-5 * abs(lc_)
+    assert abs(gk - gc) <= 1e-4 * gc
+    for n in nc:
+        assert abs(nk[n] - nc[n]) <= 1e-4 * nc[n], n

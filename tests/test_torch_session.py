@@ -36,7 +36,6 @@ from repro_torch.core.params import SchedulerParams
 from repro_torch.fabric import engine
 from repro_torch.fabric.state import FlowTable
 from repro_torch.fabric.topology import LeafSpine
-from repro_torch.launch.train import train
 from repro_torch.traces import batch as pbatch
 
 from tests.test_session import (PARAMS as JPARAMS, PORTS,
@@ -232,8 +231,6 @@ def test_session_rejects_bad_input():
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda: train("seamless-m4t-medium", steps=1, device="cpu"),
-     "11e-ii"),
     (lambda: SessionPool(PARAMS, num_ports=4, shards=2, device="cpu"),
      "item 8"),
 ])

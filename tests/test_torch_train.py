@@ -15,8 +15,8 @@ unless said, on the same weights (`lm.numpy_params`) and batches:
   state): losses, grad norms, masters and moments; k = 2 microbatches;
 * the counterparts of `tests/test_train_loop.py`'s `test_loss_decreases`
   and `test_checkpoint_restart_bitwise` (each a few seconds here), the
-  coflow plan of the gradient buckets, the archs that raise (K7's
-  (256, 256), an encoder-decoder), Gemma-7B's and Chameleon-34B's SMOKE
+  coflow plan of the gradient buckets, what still raises (K7's (256,
+  256)), Gemma-7B's and Chameleon-34B's SMOKE
   losses, and an import of the train path that loads no jax;
 * the golden `chip_smoke.py` holds the card to
   (`tests/data/torch_port_train_starcoder2_golden.json`: StarCoder2-3B at
@@ -248,26 +248,12 @@ def test_coflow_plan_covers_every_gradient_bucket(monkeypatch):
     assert not any(out["plan_launches"].values())   # plain versions
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
-def test_mamba_archs_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="11e-ii"):
-        train(arch, steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="11e-ii"):
-        ST.make_train_step(cfg, make_optimizer(cfg))
-
-
 def test_archs_not_served_yet_raise():
-    """What training still lacks after the other dense and
-    encoder-decoder models (ROADMAP queue A item 11e-ii): K7 refuses
-    Gemma-7B's (256, 256) heads before it looks at the device, and an
-    encoder-decoder config raises."""
+    """What training still lacks (ROADMAP queue A item 11e-ii): K7
+    refuses Gemma-7B's (256, 256) heads before it looks at the device."""
     q = torch.zeros(1, 2, 8, 256)
     with pytest.raises(ValueError, match="11e-ii"):
         flash_attention_bwd_cuda(q, q, q, q, q)
-    with pytest.raises(NotImplementedError, match="11e-ii"):
-        ST.make_train_step(get_smoke_config("seamless-m4t-medium"),
-                           make_optimizer(get_smoke_config("starcoder2-3b")))
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "chameleon-34b"])
