@@ -11,22 +11,20 @@ builds its tree's K7 and prints its device ms at each (shape, dtype)
 (`chip_smoke.cuda_ms`, 3 calls after warm-up, inputs from
 `chip_smoke.k7_inputs`), the change's first process also the plain
 version's and SDPA's backward (`chip_smoke.sdpa_bwd_any`), both the
-same code in either tree. Then each side's mean and their ratio. Both
-sides run this checkout's `chip_smoke` helpers; only the `repro_torch`
-package differs. One tree alone:
+same code in either tree. Then each side's mean and their ratio
+(`torch_pair.pairs`). One tree alone:
 
     python3 benchmarks/torch_k7_pair.py --src src --yardsticks
 """
 from __future__ import annotations
 
-import argparse
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from benchmarks.torch_pair import main  # noqa: E402
 
 
 def one_tree(args) -> int:
@@ -62,43 +60,6 @@ def one_tree(args) -> int:
     return 0
 
 
-def pairs(args) -> int:
-    """Parent and change in turns (p c c p ...), each in its own
-    process; every time in run order, then the means and ratios."""
-    trees = {"parent": str(Path(args.parent).resolve() / "src"),
-             "change": args.src}
-    order = []
-    for i in range(args.pairs):
-        order += ["parent", "change"] if i % 2 == 0 else ["change", "parent"]
-    runs = {"parent": [], "change": []}
-    for n, side in enumerate(order):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--src",
-               trees[side]] + (["--yardsticks"] if n == 1 else [])
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return res.returncode
-        rec = json.loads(res.stdout.strip().splitlines()[-1])
-        print(f"{side}: {json.dumps(rec)}", flush=True)
-        runs[side].append(rec)
-    for key in runs["change"][0]["ms"]:
-        p = statistics.mean(r["ms"][key] for r in runs["parent"])
-        c = statistics.mean(r["ms"][key] for r in runs["change"])
-        print(f"{key}: parent {p:.4f} ms, change {c:.4f} ms, "
-              f"parent / change {p / c:.2f}", flush=True)
-    return 0
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a checkout of the parent commit")
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--pairs", type=int, default=2)
-    ap.add_argument("--yardsticks", action="store_true",
-                    help="also time the plain version and SDPA")
-    args = ap.parse_args()
-    return pairs(args) if args.parent else one_tree(args)
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(__doc__, __file__, one_tree,
+                  "also time the plain version and SDPA"))

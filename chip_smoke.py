@@ -393,9 +393,10 @@ version on the same inputs:
    0.1, Gemma-7B's (tied embedding) each w within 0.1 + 2^-6 (|w| + the
    RMS of its row) (ROADMAP C15);
 31. training through the Mamba mixer and the encoder (`train_ssm_phase`):
-   K8 (the SSD scan's backward: the chunk states swept forward, their
-   gradients swept in reverse, every chunk's gradients, the heads' sums;
-   four launches counted as one call) against `ssd_chunked_bwd_ref` at
+   K8 (the SSD scan's backward: each chunk's state updates and G, the
+   state pass, every chunk's gradients with its split of the group's
+   heads summed in the block, the splits' sums; four launches counted
+   as one call) against `ssd_chunked_bwd_ref` at
    `SSD_CASES`, Mamba2-1.3B's train shape (4, 2048, 64, G 1, 64, N 128,
    lc 128) and Jamba's microbatch shape (1, 1024, 128, 1, 64, 16, 128),
    f32 and bf16, each gradient (da included) within K4's bar, atol 5e-4
@@ -558,7 +559,8 @@ HOST_WORKERS = 8
 K7_KERNELS = ("bwd_stats_sm90<", "bwd_dkdv_sm90<", "bwd_dq_sm90<",
               "bwd_stats_f32<", "bwd_dkdv_f32<", "bwd_dq_f32<", "bwd_sum<")
 # K8's kernels
-K8_KERNELS = ("ssd_bwd_sweep<", "ssd_bwd_chunk<", "ssd_bwd_reduce<")
+K8_KERNELS = ("ssd_bwd_states<", "ssd_bwd_pass(", "ssd_bwd_chunk<",
+              "ssd_bwd_reduce<")
 PORT_KERNELS = ("contention<", "tick_walk<", "maxmin<", "ssd_scan<",
                 "ssd_gram<", "flash_fwd", "prefix_sum_kernel") + K7_KERNELS \
     + K8_KERNELS
@@ -1024,7 +1026,7 @@ def profile_train(warm_steps=2, arch=ATTN_ARCH, batch=TRAIN_BATCH,
         print(f"[p] {name} a step: {t / 1e3:.3f} ms, {t / busy_us:.3f} of "
               f"busy ({sum(e.count for e in ks)} kernel launches); by "
               f"launch: "
-              + ", ".join(f"{e.key.split('<')[0].split('::')[-1]} "
+              + ", ".join(f"{e.key.split('<')[0].split('::')[-1].split('(')[0]} "
                           f"{e.self_device_time_total / busy_us:.3f}"
                           for e in sorted(ks, key=lambda e:
                                           -e.self_device_time_total)),
@@ -3880,18 +3882,21 @@ def ssd_bwd_bound_ms(shape, elt):
     these chunk lengths (the ragged last one unpadded; tri = the causal
     pairs u <= t of every chunk): per (batch, group) G = c b^T (tri x
     N), per (batch, head) dM = dY X^T (tri x Dh), both of the inputs
-    alone, at the bf16 tensor-core rate for bf16 inputs; then M^T dY (tri
-    x Dh), dG B and dG^T C (tri x N each) and the six L x Dh x N products
-    (the chunk states, their gradients, B dS^T, dY S, X dS and (e dY)^T
-    C), at the f32 rate (M, dG, S and dS are f32). Returns (ms, what
-    bounds it, multiply-adds)."""
+    alone, at the bf16 tensor-core rate for bf16 inputs; then at the f32
+    rate (M, dG, S and dS are f32) per (batch, head) M^T dY (tri x Dh)
+    and the five L x Dh x N products of `ref.ssd_chunked_bwd_ref` (the
+    chunk states (x w)^T b, the state gradients' updates (e dY)^T C, B
+    dS^T, dY S and X dS), and per (batch, group) dG B and dG^T C (tri x
+    N each): B and C belong to the group, so dc's and db's dG terms are
+    products of the group's heads' dG sum. Returns (ms, what bounds it,
+    multiply-adds)."""
     B, L, H, G, Dh, N, lc = shape
     nbytes = 2 * elt * (2 * B * L * H * Dh + B * L * H + 2 * B * L * G * N) \
         + 8 * H
     lens = [min(lc, L - j) for j in range(0, L, lc)]
     tri = sum(n * (n + 1) // 2 for n in lens)
     of_inputs = B * G * tri * N + B * H * tri * Dh
-    of_f32 = B * H * (tri * (Dh + 2 * N) + 6 * L * Dh * N)
+    of_f32 = B * H * (tri * Dh + 5 * L * Dh * N) + B * G * tri * 2 * N
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = 2 * of_inputs / (BF16_OPS_PER_S if elt == 2 else F32_OPS_PER_S) \
         + 2 * of_f32 / F32_OPS_PER_S
@@ -3948,7 +3953,7 @@ def k8_shape_record(tag, shape, dtype, dev, what):
     ms = cuda_ms(lambda: ops.ssd_scan_bwd(*args, dy, lc=lc), 5)
     plain = cuda_ms(lambda: ops.ssd_scan_bwd(*args, dy, lc=lc,
                                              force="ref"), 2)
-    ws = workspace(B, L, H, Dh, N, lc)
+    ws = workspace(B, L, H, Dh, G, N, lc)
     err = max(e for e, _ in per.values())
     print(f"[{tag}] K8 at {what} {shape} {str(dtype)[6:]}: kernel {ms:.4f} "
           f"ms, plain {plain:.4f} ms, library null (no single PyTorch call "

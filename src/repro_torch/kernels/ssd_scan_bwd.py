@@ -14,19 +14,23 @@ returns (dx, ddt, da, db, dc): da in f32, the others in the inputs'
 dtype, db and dc summed over the H / G heads of each group (the
 contract of `ref.ssd_chunked_bwd_ref`). Four launches, counted as one
 call (the head note of `csrc/ssd_scan_bwd.cu` has the design and its
-bound): the chunk-start states, swept forward; their gradients, swept
-in reverse; every chunk's local gradients, one block per (batch, chunk,
-head), f32 products on the CUDA cores; the heads' sums of db and dc in
-head order. No atomics: two calls give the same bits.
+bound): each chunk's own state update and state-gradient update (and G
+= c b^T once per (batch, chunk, group)); the state pass over the chunks;
+every chunk's gradients, one block per (batch, chunk, group, split of
+the group's heads: the library's `heads_per_block`, which its workspace
+query reports), which sums its heads' db and dc itself; the splits' sums in split order and da. f32 products on the
+CUDA cores. No atomics: two calls give the same bits.
 
 x, b, c and dy are read through their batch and time-step strides (a
 view whose last two dims are packed needs no copy; the mixer's views of
 its convolution output are such views). The workspaces (`workspace`:
-the chunk states and their gradients, db and dc per head, da's
-partials; 805 MB at Mamba2-1.3B's train shape) are allocated per call.
-It raises for N or lc over 128, H no multiple of G, a dtype other than
-f32 or bf16, a failed build or a failed launch (nothing falls back to
-the plain version).
+the state updates and their gradients, G, the chunks' decays, da's
+partials, the parts of each chunk's <dS, S> and, with more than one
+split a group, the splits' db and dc; 340 MB at Mamba2-1.3B's train
+shape) are allocated per call. It raises
+for N or lc over 128, H no multiple of G, a dtype other than f32 or
+bf16, a failed build or a failed launch (nothing falls back to the
+plain version).
 
 `ssd_scan_bwd_cuda` launches it; `kernels.ops.ssd_scan_bwd` dispatches
 CUDA tensors here and CPU tensors to the plain version. `launches`
@@ -42,7 +46,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import MAX_CHUNK, MAX_STATE, _rows
 
 # the workspaces in the order the kernel carves them from one buffer
-WORKSPACES = ("states", "state_grads", "db_heads", "dc_heads", "da_parts")
+WORKSPACES = ("states", "state_grads", "gram", "decays", "da_parts",
+              "state_dots", "dbdc_splits")
 launches = 0
 _lib = None
 
@@ -56,19 +61,23 @@ def _library():
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         lib.saath_ssd_scan_bwd.restype = ctypes.c_int
         lib.saath_ssd_scan_bwd_workspace.argtypes = \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.saath_ssd_scan_bwd_workspace.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
 
-def workspace(B: int, L: int, H: int, Dh: int, N: int, lc: int) -> dict:
-    """{workspace: bytes} of one call at these sizes (all f32), as the
-    kernel's library lays them out: the chunk states and their gradients
-    (B, nch, H, Dh, N), db and dc per head (B, L, H, N), da's partials
-    (B, nch, H)."""
-    floats = (ctypes.c_longlong * len(WORKSPACES))()
-    _library().saath_ssd_scan_bwd_workspace(B, L, H, Dh, N, lc, floats)
+def workspace(B: int, L: int, H: int, Dh: int, G: int, N: int,
+              lc: int) -> dict:
+    """{workspace: bytes} of one call at these sizes (all f32, each part
+    padded to a multiple of 64 floats), as the kernel's library lays
+    them out: the state updates and their gradients (B, nch, H, Dh, N),
+    G (B, nch, G, 128, 128), the decays' arguments and da's partials (B,
+    nch, H), the state pass's parts of each chunk's <dS, S> (B, nch, H,
+    ceil(Dh N / 1024)), and the splits' db and dc (2, nsp, B, L, G, N)
+    when a group has more than one split."""
+    floats = (ctypes.c_longlong * (len(WORKSPACES) + 1))()
+    _library().saath_ssd_scan_bwd_workspace(B, L, H, Dh, G, N, lc, floats)
     return {k: 4 * n for k, n in zip(WORKSPACES, floats)}
 
 
@@ -110,8 +119,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if B * L * H == 0:
         return dx.zero_(), ddt.zero_(), da, db.zero_(), dc.zero_()
     lib = _library()
-    work = torch.empty(lib.saath_ssd_scan_bwd_workspace(B, L, H, Dh, N, lc,
-                                                        None),
+    work = torch.empty(lib.saath_ssd_scan_bwd_workspace(B, L, H, Dh, G, N,
+                                                        lc, None),
                        dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 8)(x.stride(0), x.stride(1), b.stride(0),
                                       b.stride(1), c.stride(0), c.stride(1),

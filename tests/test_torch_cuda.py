@@ -1768,10 +1768,15 @@ def test_train_step_through_k5_and_k7_matches_the_plain_path(cuda):
 
 # ---- training through the Mamba mixer: K8 (the SSD scan's backward) -------
 
-# SSD_SHAPES, then Mamba2-1.3B's train shape (4 x 2048 tokens) and Jamba's
-# microbatch shape (1 x 1024 tokens, H 128, N 16)
+# SSD_SHAPES, then Mamba2-1.3B's train shape (4 x 2048 tokens), Jamba's
+# microbatch shape (1 x 1024 tokens, H 128, N 16), K8's N <= 16
+# instance with a ragged last chunk, G = 2 and groups of 20 heads that the
+# chunk launch splits 3 a block (the last split 2), and odd sizes whose
+# workspaces have odd float counts (each part must still start aligned)
 SSD_BWD_SHAPES = SSD_SHAPES[:5] + [(4, 2048, 64, 1, 64, 128, 128),
-                                   (1, 1024, 128, 1, 64, 16, 128)]
+                                   (1, 1024, 128, 1, 64, 16, 128),
+                                   (2, 2000, 40, 2, 64, 16, 128),
+                                   (1, 100, 1, 1, 3, 5, 128)]
 
 
 def ssd_bwd_inputs(B, L, H, G, Dh, N, *, seed, dtype, device):
@@ -1814,6 +1819,31 @@ def test_ssd_bwd_kernel_is_bitwise_repeatable(cuda, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_split_rule_at_the_train_shapes(cuda):
+    """The kernel library's split of each group's heads (the last entry
+    its workspace query fills; the CPU emulation takes a split as
+    given): 8 heads a chunk block at Mamba2-1.3B's train shape, 2 at
+    Jamba's, 3 for groups of 20 heads, 1 at small shapes; and every
+    workspace a multiple of 64 floats, so that each part the kernel
+    carves from one buffer starts 256-byte aligned."""
+    import ctypes
+
+    from repro_torch.kernels import ssd_scan_bwd as k8
+
+    nw = len(k8.WORKSPACES)
+    out = (ctypes.c_longlong * (nw + 1))()
+    for (B, L, H, G, Dh, N, lc), hs in (
+            ((4, 2048, 64, 1, 64, 128, 128), 8),
+            ((1, 1024, 128, 1, 64, 16, 128), 2),
+            ((2, 2000, 40, 2, 64, 16, 128), 3),
+            ((1, 16, 1, 1, 8, 8, 8), 1), ((1, 100, 1, 1, 3, 5, 128), 1)):
+        k8._library().saath_ssd_scan_bwd_workspace(B, L, H, Dh, G, N, lc,
+                                                    out)
+        assert out[nw] == hs
+        assert all(out[i] % 64 == 0 for i in range(nw))
 
 
 @pytest.mark.gpu

@@ -10,12 +10,16 @@ autograd function, on the CPU.
   inputs (the gradients rounded to bf16 on both sides) to 2e-2 of the
   largest.
 * K8's decomposition (`csrc/ssd_scan_bwd.cu`), emulated in plain torch
-  on no path of the package: the chunk-start states and their
-  gradients swept in DS-row slices, each chunk's gradients from G and dM
-  over the whole lc x lc square with the dcum terms summed as the
-  kernel sums them, db and dc per head then summed over each group's
-  heads in head order, da's partials per (batch, chunk, head) summed in
-  (batch, chunk) order. Held to the plain backward.
+  on no path of the package: each chunk's state and state-gradient
+  updates, then the state pass; G once per (batch, chunk, group) with
+  its strictly upper quarter left unformed (NaN, so a read would show),
+  dM likewise; the resident-operand products over k-panels with their
+  causal row groups skipped; each group's heads in splits of a given
+  size (one head, or a split that does not divide them), dG B and dG^T C
+  once per split from its heads' dG sum and X dS stacked over its heads,
+  the splits' db and dc summed in split order; da's partials summed in
+  (batch, chunk) order. Held to the plain backward and to `jax.vjp` of
+  the JAX package's `ssd_chunked_jnp`.
 * `models.mamba.SSDScan` / `scan`: the gradients autograd hands back
   are the plain backward's, bit for bit.
 * The repair: `ops.ssd_scan` and `ops.flash_attention` refuse a CUDA
@@ -46,8 +50,9 @@ from tests.test_torch_ssd import SHAPES, inputs
 # of lc (one chunk and a ragged one; several chunks and a ragged one)
 CASES = SHAPES + [(2, 37, 4, 2, 16, 32, 16), (1, 300, 4, 1, 16, 16, 128)]
 NAMES = ("dx", "ddt", "da", "db", "dc")
-# csrc/ssd_scan_bwd.cu: state rows a sweep block owns
-DS = 32
+# csrc/ssd_scan_bwd.cu: the rows of a tile, the k rows of a panel and the
+# rows of a thread's row group in the resident-operand products
+LC, KP, RG = 128, 16, 4
 
 
 def _arrays(B, L, H, G, Dh, N, seed):
@@ -103,112 +108,204 @@ def test_plain_backward_matches_autograd(B, L, H, G, Dh, N, lc):
         _close(g, w, 1e-4, 1e-5, name)
 
 
-def _sweep(p, q, coef, decay, nch, lc, reverse):
-    """The sweep kernel in DS-row slices: out[k] = the value at chunk
-    k's boundary (before its update); acc = decay_k acc + sum_u coef_u
-    p_u q_u^T. p (B, Lp, H, Dh), q (B, Lp, H, N), coef (B, Lp, H),
-    decay (B, nch, H)."""
-    B, _, H, Dh = p.shape
-    N = q.shape[3]
-    out = p.new_zeros(B, nch, H, Dh, N)
-    for d0 in range(0, Dh, DS):
-        acc = p.new_zeros(B, H, min(DS, Dh - d0), N)
-        for k in (reversed(range(nch)) if reverse else range(nch)):
-            out[:, k, :, d0:d0 + DS] = acc
-            sl = slice(k * lc, (k + 1) * lc)
-            pw = p[:, sl, :, d0:d0 + DS] * coef[:, sl, :, None]
-            acc = decay[:, k, :, None, None] * acc + torch.einsum(
-                "buhd,buhn->bhdn", pw, q[:, sl])
-    return out
+def _panels_live(K, rule):
+    """The k-panels of KP rows of a resident-operand product and, for each,
+    which output rows take part: rule "k>=row" (a row group of RG rows
+    skips a panel whose last k is before its first row) or "k<=row" (one
+    whose first k is past its last row)."""
+    rows = torch.arange(LC)
+    grp = rows - rows % RG
+    for k0 in range(0, K, KP):
+        if rule == "k>=row":
+            yield k0, grp <= k0 + KP - 1
+        else:
+            yield k0, grp + RG - 1 >= k0
 
 
-def emulate_k8(x, dt, a, b, c, dy, *, lc):
-    """K8's four launches in f32: (dx, ddt, da, db, dc)."""
+def emulate_k8(x, dt, a, b, c, dy, *, lc, hs):
+    """K8's four launches in f32: (dx, ddt, da, db, dc). Chunks padded to
+    LC rows as the kernel's tiles are; the strictly upper quarter of G
+    and dM left unformed (G's reads as NaN: the kernel never writes it,
+    and a read of it would show); the resident-operand products over
+    k-panels with their causal row groups skipped; each group's heads
+    in splits of `hs` heads, dG B and dG^T C
+    once per split from the split's dG sum, X dS stacked over its heads,
+    the splits summed in split order; da's partials in (batch, chunk)
+    order."""
     f32 = torch.float32
     B, L, H, Dh = x.shape
     G, N = b.shape[2], b.shape[3]
     rep = H // G
     nch = -(-L // lc)
-    pad = nch * lc - L
+    nsp = -(-rep // hs)
+    F = torch.nn.functional
 
-    def rows(t):   # rows past L read as zeros
-        return torch.nn.functional.pad(t.to(f32), (0,) * (2 * t.dim() - 4)
-                                       + (0, pad))
+    def chunks(t):   # (B, L, ...) -> (B, nch, LC, ...), zeros past L, lc
+        t = F.pad(t.to(f32), (0,) * (2 * (t.dim() - 2)) + (0, nch * lc - L))
+        t = t.reshape((B, nch, lc) + t.shape[2:])
+        return F.pad(t, (0,) * (2 * (t.dim() - 3)) + (0, LC - lc))
 
-    xf, dyf, dtf = rows(x), rows(dy), rows(dt)
-    bh = rows(b).repeat_interleave(rep, dim=2)
-    ch = rows(c).repeat_interleave(rep, dim=2)
+    xc, yc, bc, cc, dtc = (chunks(t) for t in (x, dy, b, c, dt))
     af = a.to(f32)
-    dta = (dtf * af).view(B, nch, lc, H)
-    cum = torch.cumsum(dta, dim=2)                       # (B, nch, lc, H)
-    cl = cum[:, :, -1]                                   # (B, nch, H)
-    e = torch.exp(cum)
-    w = torch.exp(cl[:, :, None] - cum) * dtf.view(B, nch, lc, H)
-    S = _sweep(xf, bh, w.reshape(B, -1, H), torch.exp(cl), nch, lc, False)
-    dS = _sweep(dyf, ch, e.reshape(B, -1, H), torch.exp(cl), nch, lc, True)
+    rows = torch.arange(LC)
+    cum = torch.cumsum(dtc * af, dim=2)                  # (B, nch, LC, H)
+    cl = cum[:, :, lc - 1]                               # (B, nch, H)
+    inlc = (rows < lc)[None, None, :, None]
+    e = torch.where(inlc, torch.exp(cum), 0.0)
+    w = torch.where(inlc, torch.exp(cl[:, :, None] - cum) * dtc, 0.0)
+    gi = torch.arange(H) // rep
 
-    def chunks(t):
-        return t.view((B, nch, lc) + t.shape[2:])
+    # launch 1: each chunk's state update and state-gradient update; G
+    upd = torch.einsum("bkuhd,bkuhn->bkhdn", xc * w[..., None], bc[:, :, :, gi])
+    dupd = torch.einsum("bkthd,bkthn->bkhdn", yc * e[..., None],
+                        cc[:, :, :, gi])
+    gram = torch.einsum("bktgn,bkugn->bkgtu", cc, bc)
+    gram[..., :LC // 2, LC // 2:] = float("nan")
+    # launch 2: the state pass
+    S, dS = torch.empty_like(upd), torch.empty_like(dupd)
+    st = torch.zeros_like(upd[:, 0])
+    for k in range(nch):
+        S[:, k] = st
+        st = torch.exp(cl[:, k])[..., None, None] * st + upd[:, k]
+    st = torch.zeros_like(dupd[:, 0])
+    for k in reversed(range(nch)):
+        dS[:, k] = st
+        st = torch.exp(cl[:, k])[..., None, None] * st + dupd[:, k]
 
-    xc, dyc, bc, cc = chunks(xf), chunks(dyf), chunks(bh), chunks(ch)
-    dtc = chunks(dtf)
-    tri = torch.tril(torch.ones(lc, lc, dtype=torch.bool))[None, None, :,
-                                                           :, None]
-    lv = torch.where(tri, torch.exp(torch.where(
-        tri, cum[:, :, :, None] - cum[:, :, None], 0.0)), 0.0)
-    gm = torch.einsum("bkthn,bkuhn->bktuh", cc, bc)      # each head's G
-    dm = torch.where(tri, torch.einsum("bkthd,bkuhd->bktuh", dyc, xc), 0.0)
-    m = gm * lv * dtc[:, :, None]
-    dg = dm * lv * dtc[:, :, None]
-    p = dm * m
-    bds = torch.einsum("bkuhn,bkhdn->bkuhd", bc, dS)
-    dys = torch.einsum("bkthd,bkhdn->bkthn", dyc, S)
-    dx = torch.einsum("bktuh,bkthd->bkuhd", m, dyc) + w[..., None] * bds
-    dch = torch.einsum("bktuh,bkuhn->bkthn", dg, bc) + e[..., None] * dys
-    dbh = (torch.einsum("bktuh,bkthn->bkuhn", dg, cc)
-           + w[..., None] * torch.einsum("bkuhd,bkhdn->bkuhn", xc, dS))
-    dw = (xc * bds).sum(-1)
-    eterm = e * (cc * dys).sum(-1)
-    dcum = p.sum(3) - p.sum(2) + eterm - dw * w
-    dcum[:, :, -1] += (dw * w).sum(2) + torch.exp(cl) * (dS * S).sum((-2, -1))
-    # one thread's reverse cumsum, row by row from the chunk's last
-    run = torch.zeros_like(dcum[:, :, 0])
-    ddta = torch.empty_like(dcum)
-    for u in reversed(range(lc)):
-        run = run + dcum[:, :, u]
-        ddta[:, :, u] = run
-    ddt = (dm * gm * lv).sum(2) + dw * torch.exp(cl[:, :, None] - cum) \
-        + af * ddta
-    dap = (dtc * ddta).sum(2)                            # (B, nch, H)
+    # launch 3
+    nv = torch.tensor([min(lc, L - k * lc) for k in range(nch)])
+    on = (rows[:, None] >= rows[None, :])[None] & \
+        (rows[None, :] < nv[:, None])[:, :, None]        # (nch, t, u)
+    on = on[None]
+    dx = torch.zeros(B, nch, LC, H, Dh)
+    ddt = torch.zeros(B, nch, LC, H)
+    dap = torch.zeros(B, nch, H)
+    dbp = torch.zeros(nsp, B, nch, LC, G, N)
+    dcp = torch.zeros(nsp, B, nch, LC, G, N)
+    half = LC // 2
+    for g in range(G):
+        for sp in range(nsp):
+            heads = range(g * rep + sp * hs, min(g * rep + (sp + 1) * hs,
+                                                (g + 1) * rep))
+            gt = torch.where(on, gram[:, :, g], 0.0)
+            dgs = torch.zeros(B, nch, LC, LC)
+            dcs = torch.zeros(B, nch, LC, N)
+            d1, dirv, dw = {}, {}, {}
+            for h in heads:
+                dm = torch.zeros(B, nch, LC, LC)
+                for r0, c0 in ((0, 0), (half, 0), (half, half)):
+                    dm[:, :, r0:r0 + half, c0:c0 + half] = torch.einsum(
+                        "bktd,bkud->bktu", yc[:, :, r0:r0 + half, h],
+                        xc[:, :, c0:c0 + half, h])
+                ch = cum[..., h]
+                lv = torch.where(on, torch.exp(torch.where(
+                    on, ch[..., :, None] - ch[..., None, :], 0.0)), 0.0)
+                dm = torch.where(on, dm, 0.0)
+                m = gt * lv * dtc[:, :, None, :, h]
+                dgs = dgs + dm * lv * dtc[:, :, None, :, h]
+                p = dm * m
+                d1[h] = p.sum(3) - p.sum(2)
+                dirv[h] = (dm * gt * lv).sum(2)
+                bds = torch.einsum("bkun,bkdn->bkud", bc[:, :, :, g],
+                                   dS[:, :, h])
+                dw[h] = (xc[:, :, :, h] * bds).sum(-1)
+                acc = w[..., h, None] * bds
+                for k0, live in _panels_live(LC, "k>=row"):
+                    acc = acc + torch.where(live[:, None], torch.einsum(
+                        "bktu,bktd->bkud", m[:, :, k0:k0 + KP],
+                        yc[:, :, k0:k0 + KP, h]), 0.0)
+                dx[:, :, :, h] = acc
+            for h in heads:
+                dys = torch.einsum("bktd,bkdn->bktn",
+                                   yc[:, :, :, h] * e[..., h, None],
+                                   S[:, :, h])
+                eterm = (cc[:, :, :, g] * dys).sum(-1)
+                dcs = dcs + dys
+                dsdot = (dS[:, :, h] * S[:, :, h]).sum((-2, -1))
+                dww = dw[h] * w[..., h]
+                dcum = torch.where(rows < lc, d1[h] + eterm - dww, 0.0)
+                dcum[:, :, lc - 1] += dww.sum(-1) + torch.exp(cl[..., h]) \
+                    * dsdot
+                ddta = dcum.flip(-1).cumsum(-1).flip(-1)   # d(dt a)
+                ddt[:, :, :, h] = dirv[h] + dw[h] * torch.exp(
+                    cl[..., h, None] - cum[..., h]) + af[h] * ddta
+                dap[:, :, h] = (dtc[..., h] * ddta).sum(-1)
+            dC, dB = dcs, torch.zeros(B, nch, LC, N)
+            for k0, live in _panels_live(LC, "k<=row"):
+                dC = dC + torch.where(live[:, None], torch.einsum(
+                    "bktu,bkun->bktn", dgs[:, :, :, k0:k0 + KP],
+                    bc[:, :, k0:k0 + KP, g]), 0.0)
+            for k0, live in _panels_live(LC, "k>=row"):
+                dB = dB + torch.where(live[:, None], torch.einsum(
+                    "bktu,bktn->bkun", dgs[:, :, k0:k0 + KP],
+                    cc[:, :, k0:k0 + KP, g]), 0.0)
+            for h in heads:   # the heads' X dS, stacked
+                dB = dB + torch.einsum("bkud,bkdn->bkun",
+                                       xc[:, :, :, h] * w[..., h, None],
+                                       dS[:, :, h])
+            dbp[sp, :, :, :, g] = dB
+            dcp[sp, :, :, :, g] = dC
+    # launch 4
+    dbs, dcs = dbp[0], dcp[0]
+    for sp in range(1, nsp):
+        dbs, dcs = dbs + dbp[sp], dcs + dcp[sp]
     da = torch.zeros(H)
-    for bi in range(B):                                  # (batch, chunk)
+    for bi in range(B):
         for k in range(nch):
             da = da + dap[bi, k]
 
-    def heads(t):   # head order within each group
-        t = t.reshape(B, nch * lc, G, rep, N)[:, :L]
-        out = t[:, :, :, 0]
-        for r in range(1, rep):
-            out = out + t[:, :, :, r]
-        return out
+    def back(t):   # (B, nch, LC, ...) -> (B, L, ...)
+        return t[:, :, :lc].reshape((B, nch * lc) + t.shape[3:])[:, :L]
 
-    return (dx.reshape(B, -1, H, Dh)[:, :L].to(x.dtype),
-            ddt.reshape(B, -1, H)[:, :L].to(dt.dtype), da,
-            heads(dbh).to(b.dtype), heads(dch).to(c.dtype))
+    return (back(dx).to(x.dtype), back(ddt).to(dt.dtype), da,
+            back(dbs).to(b.dtype), back(dcs).to(c.dtype))
+
+
+def _jax_vjp(arrs, dy, lc):
+    jx = [jnp.asarray(t) for t in arrs]
+    _, vjp = jax.vjp(lambda *t: ssd_chunked_jnp(*t, lc=lc)[0], *jx)
+    return vjp(jnp.asarray(dy))
 
 
 @pytest.mark.parametrize("B,L,H,G,Dh,N,lc", CASES + [
-    (1, 64, 2, 1, 48, 16, 32), (1, 20, 2, 2, 8, 4, 128)])
+    (1, 64, 2, 1, 48, 16, 32), (1, 20, 2, 2, 8, 4, 128),
+    (2, 150, 4, 1, 16, 16, 64)])
 def test_k8_design_matches_the_plain_backward(B, L, H, G, Dh, N, lc):
-    """Also a Dh no multiple of DS (two slices, the last short) and a
-    chunk longer than L."""
+    """Also Dh = 48 (a part-filled dX tile), a chunk longer than L, and
+    N = 16 with a ragged last chunk and lc < 128. One head a block: the
+    kernel library's split at these small shapes (the card test
+    `test_ssd_bwd_split_rule_at_the_train_shapes` reads its rule). Held
+    to the plain backward and to `jax.vjp` of the JAX package's scan."""
     arrs, dy = _arrays(B, L, H, G, Dh, N, seed=L + 11)
     ts, tdy = _torch(arrs, dy, torch.float32)
     want = ssd_chunked_bwd_ref(*ts, tdy, lc=lc)
-    got = emulate_k8(*ts, tdy, lc=lc)
-    for name, g, w in zip(NAMES, got, want):
+    got = emulate_k8(*ts, tdy, lc=lc, hs=1)
+    for name, g, w, j in zip(NAMES, got, want, _jax_vjp(arrs, dy, lc)):
         assert g.shape == w.shape, name
         _close(g, w, 1e-4, 1e-5, name)
+        _close(g, j, 1e-4, 1e-5, name + " (jax.vjp)")
+
+
+# (B, L, H, G, Dh, N, lc, heads a block): splits that do not divide a
+# group's heads (3 = 2 + 1, 8 = 3 + 3 + 2, 7 = 4 + 3), N = 16, ragged
+# last chunks, lc < 128; then one split a group, one head a split, and
+# splits of 8 heads (Mamba2-1.3B's train shape gets 8, Jamba's 2)
+SPLITS = [(2, 150, 6, 2, 16, 32, 64, 2), (1, 300, 8, 1, 16, 16, 128, 3),
+          (1, 200, 14, 2, 32, 16, 64, 4), (2, 100, 4, 1, 16, 16, 32, 4),
+          (1, 90, 3, 1, 72, 8, 128, 1), (1, 160, 16, 1, 16, 32, 64, 8)]
+
+
+@pytest.mark.parametrize("B,L,H,G,Dh,N,lc,hs", SPLITS)
+def test_k8_design_head_splits(B, L, H, G, Dh, N, lc, hs):
+    """Each group's heads in splits of `hs`, the splits' db and dc summed
+    in split order: held to the plain backward and to `jax.vjp`."""
+    arrs, dy = _arrays(B, L, H, G, Dh, N, seed=L + 13)
+    ts, tdy = _torch(arrs, dy, torch.float32)
+    want = ssd_chunked_bwd_ref(*ts, tdy, lc=lc)
+    got = emulate_k8(*ts, tdy, lc=lc, hs=hs)
+    for name, g, w, j in zip(NAMES, got, want, _jax_vjp(arrs, dy, lc)):
+        _close(g, w, 1e-4, 1e-5, name)
+        _close(g, j, 1e-4, 1e-5, name + " (jax.vjp)")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
